@@ -1,7 +1,7 @@
-"""mundy_tpu — TPU-native multibody nonlocal dynamics framework.
+"""mundy_tpu — multibody nonlocal dynamics in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of MundyRepo/MuNDy
-(C++20 Kokkos/Trilinos-STK; see /root/reference and SURVEY.md):
+(C++20 Kokkos/Trilinos-STK; see SURVEY.md):
 
 - particles / rods / filaments with short-range contact (Hertzian, WCA,
   frictional-Hertzian) and LCP-constrained non-penetration solved by
@@ -12,9 +12,9 @@ A ground-up JAX/XLA/Pallas re-design of the capabilities of MundyRepo/MuNDy
   confinement, Ewald/FMM-style blocked-matmul pipelines),
 - periodic / confined domains, Morton/Hilbert-sorted cell-list neighbor search,
 - multi-chip execution over a `jax.sharding.Mesh` (spatial domain decomposition
-  via sharded structure-of-arrays state; ICI collectives replace MPI).
+  via sharded structure-of-arrays state; XLA collectives replace MPI).
 
-Layer map (mirrors reference layers, SURVEY.md §1, re-designed TPU-first):
+Layer map (mirrors reference layers, SURVEY.md §1, re-designed for XLA):
 
     core     -> config, pytree containers, assertions       (ref: mundy/core)
     math     -> quaternions, L-BFGS, BBPGD LCP/QP, SFC keys (ref: mundy/math)

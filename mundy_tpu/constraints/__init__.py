@@ -1,6 +1,6 @@
 """Constrained dynamics: LCP-based non-penetration collision resolution.
 
-TPU-native replacement for the reference's matrix-free BBPGD collision path
+Replacement for the reference's matrix-free BBPGD collision path
 (`scrap/lcp_spheres/StkNgpLCP.cpp:705-875`) and the archived NonSmoothLCP
 (`scrap/motion/`).
 """

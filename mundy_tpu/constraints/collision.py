@@ -36,7 +36,7 @@ class CollisionSetup(NamedTuple):
     - ORDERED (preferred): `pairs` from build_pair_list_ordered — every
       contact present in both directions, i sorted — and `windows` the
       rebuild-time block structure; D gamma is ONE blocked segmented
-      reduction (ops/segments.py; 6x over scatter at 1M on v5e). The
+      reduction (ops/segments.py). The
       duplicated system is exactly equivalent: gamma stays symmetric under
       BBPGD because the gradient is (sdot is identical for (i,j) and
       (j,i)), and each ordered pair pushes only its own i.
@@ -56,8 +56,8 @@ def body_pair_starts(nmat) -> Array:
     (N, K) neighbor matrix — the flat position of each body's run in the
     ordered pair list build_pair_list_ordered compacts from it (row-major
     compaction preserves per-body contiguity). One mask-sum + cumsum:
-    ~1 ms at 1M, vs the 1.2 s a searchsorted over two 1M-slot id arrays
-    costs on v5e (XLA lowers it to a serial 21-probe gather chain)."""
+    O(N), vs a searchsorted over two 1M-slot id arrays (XLA lowers it to
+    a serial 21-probe gather chain)."""
     counts = jnp.sum(nmat.mask, axis=1, dtype=jnp.int32)
     return jnp.concatenate([jnp.zeros((1,), jnp.int32), jnp.cumsum(counts)])
 
@@ -78,15 +78,14 @@ def remap_gamma(old_pairs: PairList, old_gamma: Array, new_pairs: PairList,
 
     `old_starts` ((N+1,) from body_pair_starts on the OLD neighbor matrix)
     locates the runs with one gather; without it a vectorized searchsorted
-    is used (fine for small/CPU lists, 1.2 s at 1M on v5e).
+    is used (fine for small lists; a serial probe chain at scale).
 
     `old_nmat` (the OLD NeighborMatrix the old pair list was compacted
     from, with `old_starts`) replaces the `probes`-deep probing loop —
-    12 probes x 4 gathers over the full old list cost 1.13 s at 1M bodies
-    on v5e — with ONE (C_new, K) row gather of the old neighbor rows: the
+    12 probes x 4 gathers over the full old list — with ONE (C_new, K)
+    row gather of the old neighbor rows: the
     old slot of pair (i, j) is old_starts[i] + (count of valid old slots
     before j's lane), because build_pair_list_ordered compacts row-major.
-    ~25 ms at 1M (45x).
 
     Values may carry trailing dims (e.g. (C, 3) tangential-displacement
     history for frictional DEM) — matched slots copy whole rows.
@@ -228,9 +227,8 @@ def active_pair_subset_strided(setup: CollisionSetup, margin,
 
     Same complementarity argument as active_pair_subset (pairs beyond the
     margin provably carry zero multipliers), but block windows get STATIC
-    offsets — which is what admits the VMEM one-hot Pallas assembly kernel
-    (ops/pallas/seg_onehot.py; the windowed XLA path pays ~1 GB of
-    materialized one-hot HBM traffic per Delassus apply at 1M bodies). The
+    offsets, so nothing is searched at rebuild (block b's window IS
+    [b*W, (b+1)*W)). The
     cost is pad slots interspersed between blocks instead of one tail run;
     every consumer already masks by slot validity.
 
@@ -283,9 +281,8 @@ def active_pair_subset_strided(setup: CollisionSetup, margin,
 
     # ONE packed row gather for every per-full-slot column (ids, normals,
     # sep0, dual slot, warm-start cumsums, entry multipliers). The column-
-    # at-a-time formulation paid ~9 separate (A,)-row gathers from loop-
-    # carried arrays — measured 89 ms at 1M bodies on v5e vs ~7 ms for the
-    # packed single gather (the "pack params, gather once" rule).
+    # at-a-time formulation pays ~9 separate (A,)-row gathers from loop-
+    # carried arrays (the "pack params, gather once" rule).
     cols = [pairs.i.astype(dtype), pairs.j.astype(dtype),
             setup.normals[:, 0], setup.normals[:, 1], setup.normals[:, 2],
             setup.sep0]
@@ -373,9 +370,7 @@ def pair_dual_slots(pairs: PairList, starts: Array, nmat,
     roundings). Case (b) is physically irrelevant — the pair sits at the
     FULL skin-buffer separation, provably outside every active margin
     until the next skin-triggered rebuild — yet at 1M bodies it raises
-    the sticky overflow within ~10 steps of any window (observed as the
-    settle_overflow caveat on the north-star bench; benchmarks/
-    probe_settle.py). Callers pass near = (gap < buffer/2) at rebuild
+    the sticky overflow within ~10 steps of any window. Callers pass near = (gap < buffer/2) at rebuild
     positions so only contact-capable asymmetry trips the flag.
     """
     n = starts.shape[0] - 1
@@ -412,11 +407,9 @@ def collision_setup_spheres(
 ) -> CollisionSetup:
     """Signed separation + contact normal per pair.
 
-    VECTOR gathers on purpose: computed-index gathers cost ~4.3 ns/ROW
-    regardless of width on v5e, so one (C, 3) gather beats three scalar-
-    plane gathers 4-6.5x at C <= ~1M (measured: the sep-rate pattern at
-    C = 65k runs 0.93 ms with vector gathers vs 3.56 ms on planes; at
-    C = 1M, 11.7 vs 76.4). Component planes are only for BILLION-slot
+    VECTOR gathers on purpose: one (C, 3) row gather instead of three
+    scalar-plane gathers (gather cost is mostly per ROW, not per
+    element). Component planes are only for BILLION-slot
     candidate tables where the (M, 3) intermediate's 42x lane padding
     out-sizes HBM (chromatin KMC) — that is a memory rule, not a speed
     rule. Orthorhombic boxes still skip the metric's fractional-coordinate
@@ -450,9 +443,8 @@ def collision_setup_spheres(
     if radius.ndim == 0:
         # monodisperse: NO radius gathers. XLA cannot fold
         # broadcast(scalar)[carried_idx] when the indices live in a loop
-        # carry — the two "free" gathers cost ~26 ms at C = 1.6M on v5e
-        # (measured round 4; with compile-time-constant indices they fold
-        # to a splat and cost nothing, which hid this in microbenches).
+        # carry (with compile-time-constant indices they fold to a splat
+        # and cost nothing, which hides the cost in microbenches).
         sep0 = d - 2.0 * radius
     else:
         radius = jnp.broadcast_to(radius, pos.shape[:1])
@@ -501,8 +493,8 @@ def _sep_rate(setup: CollisionSetup, vel: Array) -> Array:
     """sdot = D^T U = -n . (U_i - U_j).
 
     Vector gathers on purpose — this runs once per BBPGD iteration, and
-    one (C, 3) gather beats three scalar-plane gathers 4-6.5x on v5e
-    (gather cost is per ROW, not per element; see collision_setup_spheres).
+    one (C, 3) gather instead of three scalar-plane gathers (gather cost
+    is mostly per ROW, not per element; see collision_setup_spheres).
 
     ref: compute_rate_of_change_of_sep (`StkNgpLCP.cpp:635-668`).
     """
@@ -519,10 +511,9 @@ def make_local_drag_apply(setup: CollisionSetup, dual: Array, n_bodies: int,
     sdot is the dual pair's i-side:
         sdot_p = -n_p.(U_i - U_j) = c_i t_p + c_j t_{dual(p)},
         t_q = -n_q . F_{i(q)}.
-    One VMEM one-hot Pallas pass computes t (assembly + extraction, zero
-    global (A, 3) gathers; ops/pallas/seg_onehot.strided_onehot_t) and one
-    (A,) scalar gather crosses blocks — ~2x faster per BBPGD iteration than
-    the general D^T M D chain at 1M bodies.
+    ops/segments.strided_t computes t (block-local assembly + one row
+    gather, no global (A, 3) velocity gathers) and one (A,) scalar gather
+    crosses blocks.
 
     `mobility_i`/`mobility_j`: per-pair drag mobilities c_{i(p)}, c_{j(p)}
     ((A,) arrays for polydisperse radii) or scalars; both default 1 (fold
@@ -556,21 +547,21 @@ def assemble_block_delassus(setup: CollisionSetup) -> Array:
 
     The active set is FIXED across a solve's iterations, so assembling M
     once per step turns every BBPGD iteration's i-side half-apply into a
-    bandwidth-bound batched matvec (read nb*W^2 f32 ~ 1 GB at 1M bodies,
-    ~1.3 ms on v5e) instead of the ~5 ms VMEM one-hot matmul chain whose
-    (3, W) x (W, B) shapes waste the 128-row MXU 40x. The j-side coupling
+    bandwidth-bound batched matvec (read nb*W^2 f32 ~ 1 GB at 1M bodies)
+    instead of a one-hot assembly chain of skinny (3, W) x (W, B)
+    products per iteration. The j-side coupling
     stays a dual-slot gather (make_block_delassus_apply).
 
-    Pure VPU construction (broadcast compares + 3 FMA per element, f32
-    exact — no MXU, no bf16): XLA fuses it into the single (nb, W, W)
+    Pure elementwise construction (broadcast compares + 3 FMA per element,
+    f32 exact — no matmul, no bf16): XLA fuses it into the single (nb, W, W)
     output write. Invalid slots (mask off / id outside the block) zero
     their row and column; the diagonal carries |n_p|^2 = 1, pair p's own
-    contribution to F_{i(p)} — identical semantics to the one-hot kernel.
+    contribution to F_{i(p)} — identical semantics to strided_t.
 
     ref: the assembled form of `sum_collision_force` +
     `compute_rate_of_change_of_sep` (`scrap/lcp_spheres/StkNgpLCP.cpp:578,
-    635`) restricted to one body block; the reference keeps it matrix-free
-    on GPU, but on TPU the rebuild-once/apply-13x trade favors assembly.
+    635`) restricted to one body block; the reference keeps it
+    matrix-free, here the rebuild-once/apply-many trade favors assembly.
     """
     from mundy_tpu.ops.segments import StridedWindows
 

@@ -1,6 +1,6 @@
 """Core utilities: pytree containers, assertions, config.
 
-TPU-native replacement for MundyCore (reference `mundy/core/`, SURVEY.md §2.1).
+Replacement for MundyCore (reference `mundy/core/`, SURVEY.md §2.1).
 The reference's compile-time `aggregate`/`tuple`/`variant` map to registered
 dataclass pytrees; `NgpView`/`NgpPool` host-device dual views disappear (JAX
 owns one device memory space); `MUNDY_THROW_REQUIRE/ASSERT` become host-side

@@ -1,6 +1,6 @@
 """Config: typed dataclass schemas populated from YAML/dicts with validation.
 
-TPU-native replacement for the reference's Teuchos::ParameterList + YAML
+Replacement for the reference's Teuchos::ParameterList + YAML
 pipeline (`Teuchos::getParametersFromYamlFile`,
 `scrap/hp1_mock_reworks/HP1_mock_rework_agents_text_mesh_neigh_linker.cpp:867-1062`)
 and the custom `OurAnyNumberParameterEntryValidator`
@@ -13,10 +13,9 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import re
 import typing
 from typing import Any, Type, TypeVar, Union, get_args, get_origin
-
-import yaml
 
 _T = TypeVar("_T")
 
@@ -25,15 +24,124 @@ class ConfigError(ValueError):
     """Raised on schema violations (unknown key, bad type, failed check)."""
 
 
+_INT = re.compile(r"[-+]?[0-9]+")
+_FLOAT = re.compile(r"[-+]?([0-9]+\.[0-9]*|\.[0-9]+|[0-9]+)([eE][-+]?[0-9]+)?")
+_KEY = re.compile(r"[A-Za-z_][A-Za-z0-9_.-]*")
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a '#' comment that starts a line or follows whitespace, outside
+    quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _scalar(tok: str, where: str) -> Any:
+    tok = tok.strip()
+    if tok in ("", "~", "null", "Null", "NULL"):
+        return None
+    if tok in ("true", "True", "TRUE"):
+        return True
+    if tok in ("false", "False", "FALSE"):
+        return False
+    if len(tok) >= 2 and tok[0] == tok[-1] and tok[0] in "'\"":
+        body = tok[1:-1]
+        if tok[0] in body.replace("\\" + tok[0], ""):
+            raise ConfigError(f"{where}: unbalanced quotes in {tok!r}")
+        return body.replace("\\" + tok[0], tok[0])
+    if _INT.fullmatch(tok):
+        return int(tok)
+    if _FLOAT.fullmatch(tok):
+        return float(tok)
+    if tok.lower() in (".inf", "+.inf", "-.inf", ".nan"):
+        return float(tok.lower().replace(".", ""))
+    if tok[0] in "[]{}&*!|>'\"%@`-" or ": " in tok or tok.endswith(":"):
+        raise ConfigError(f"{where}: unsupported YAML syntax {tok!r}")
+    return tok
+
+
+def _value(tok: str, where: str) -> Any:
+    tok = tok.strip()
+    if tok.startswith("["):
+        if not tok.endswith("]"):
+            raise ConfigError(f"{where}: unterminated flow list {tok!r}")
+        inner = tok[1:-1].strip()
+        if not inner:
+            return []
+        if "[" in inner or "{" in inner:
+            raise ConfigError(f"{where}: nested flow collections are not "
+                              "supported")
+        return [_scalar(t, where) for t in inner.split(",")]
+    return _scalar(tok, where)
+
+
+def parse_yaml(text: str, source: str = "<string>") -> dict:
+    """Parse the YAML subset the configs use: nested mappings by
+    indentation, scalars (int, float, bool, null, plain or quoted strings),
+    flow lists of scalars, and comments. Anything else (block sequences,
+    anchors, multi-line strings, flow mappings, tabs, several documents)
+    raises ConfigError."""
+    root: dict = {}
+    stack = [(-1, root)]  # (indent, mapping)
+    pending = None        # (indent, parent, key) awaiting a nested mapping
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        where = f"{source}:{lineno}"
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        if "\t" in raw[:len(raw) - len(raw.lstrip())]:
+            raise ConfigError(f"{where}: tab indentation")
+        if line.strip() in ("---", "..."):
+            raise ConfigError(f"{where}: document markers are not supported")
+        indent = len(line) - len(line.lstrip(" "))
+        body = line.strip()
+        if body.startswith("- ") or body == "-":
+            raise ConfigError(f"{where}: block sequences are not supported; "
+                              "use a flow list [a, b]")
+        key, sep, rest = body.partition(":")
+        if not sep or (rest and not rest.startswith(" ")):
+            raise ConfigError(f"{where}: expected 'key: value', got {body!r}")
+        key = key.strip()
+        if not _KEY.fullmatch(key):
+            raise ConfigError(f"{where}: unsupported key {key!r}")
+        if pending is not None:
+            p_indent, p_parent, p_key = pending
+            pending = None
+            if indent > p_indent:
+                child: dict = {}
+                p_parent[p_key] = child
+                stack.append((indent, child))
+            else:
+                p_parent[p_key] = None
+        while indent < stack[-1][0]:
+            stack.pop()
+        if indent != stack[-1][0] and stack[-1][1] is not root:
+            raise ConfigError(f"{where}: inconsistent indentation")
+        if stack[-1][1] is root and indent != 0:
+            raise ConfigError(f"{where}: unexpected indentation")
+        mapping = stack[-1][1]
+        if key in mapping:
+            raise ConfigError(f"{where}: duplicate key {key!r}")
+        if rest.strip():
+            mapping[key] = _value(rest, where)
+        else:
+            mapping[key] = None
+            pending = (indent, mapping, key)
+    return root
+
+
 def load_yaml(path: str) -> dict:
-    """Load a YAML file into a plain dict (safe loader)."""
+    """Load a YAML config file into a plain dict (the parse_yaml subset)."""
     with open(path, "r") as f:
-        out = yaml.safe_load(f)
-    if out is None:
-        return {}
-    if not isinstance(out, dict):
-        raise ConfigError(f"top-level YAML in {path} must be a mapping")
-    return out
+        return parse_yaml(f.read(), path)
 
 
 def _coerce(value: Any, typ: Any, path: str) -> Any:

@@ -1,6 +1,6 @@
 """Assertions.
 
-TPU-native replacement for `MUNDY_THROW_REQUIRE` / `MUNDY_THROW_ASSERT`
+Replacement for `MUNDY_THROW_REQUIRE` / `MUNDY_THROW_ASSERT`
 (reference `mundy/core/src/mundy_core/throw_assert.hpp:119-178`): host-side
 checks raise immediately; inside traced code we emit `jax.debug` checks that
 are free when disabled and do not break compilation.

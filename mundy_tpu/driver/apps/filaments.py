@@ -1,7 +1,7 @@
 """BASELINE config #4: flexible filaments / flagella — chained
 spherocylinder segments with Kirchhoff bending/twist mechanics + collision.
 
-TPU re-design of the reference's sperm/filament pipeline
+JAX re-design of the reference's sperm/filament pipeline
 (`scrap/Sperm.cpp`, CollidingFrictionalSperm performance tests): per step
     1. rod internal forces (centerline-twist energy gradients, mech.rod)
     2. segment-segment Hertzian contact across filaments (adjacent
@@ -276,7 +276,7 @@ class FilamentsSim:
         _contact_node_forces): midpoints refreshed into the (skin-buffered)
         row layout by ONE slot->gid gather, endpoints ride as payload
         half-edge vectors, every 9-stencil pair block runs the clamped
-        segment-segment kernel on the VPU, and the two node-split force
+        segment-segment kernel as dense blocks, and the two node-split force
         sums return via one scatter each."""
         from mundy_tpu.neighbor.rows import (
             orthorhombic_lengths,
@@ -294,8 +294,7 @@ class FilamentsSim:
         gid_f = jnp.where(rows.valid, rows.gid.astype(self.dtype),
                           jnp.asarray(-10.0, self.dtype))
         rows_cur = rows.replace(pos=row_mid)
-        # python floats (not jnp scalars): Pallas rejects captured traced
-        # values; weak typing keeps the XLA path's dtype unchanged
+        # python-float closure constants: weak typing keeps the state dtype
         two_r = float(2.0 * c.radius)
         r_eff = float(0.5 * c.radius)
         e_eff = float(effective_youngs(c.youngs_modulus, c.youngs_modulus,
@@ -318,24 +317,9 @@ class FilamentsSim:
             ws, we = 1.0 - s, s
             return (ws * fx, ws * fy, ws * fz, we * fx, we * fy, we * fz)
 
-        if self._pallas_ok(rows):
-            from mundy_tpu.ops.pallas.row_segments import row_segment_pairs_sym
-
-            def pl_out(s, t, dx, dy, dz, d2, own_g, cand_g, *_he):
-                return out_fn(s, t, dx, dy, dz, d2, own_g, cand_g)
-
-            def pl_partner(s, t, dx, dy, dz, d2, own_g, cand_g, *_he):
-                # partner side: force -f, node split by ITS arc parameter t
-                return out_fn(t, s, -dx, -dy, -dz, d2, cand_g, own_g)
-
-            box_l = orthorhombic_lengths(self.metric)[0]
-            fsx, fsy, fsz, fex, fey, fez = row_segment_pairs_sym(
-                row_mid, row_e, box_l, pl_out, pl_partner, 6,
-                own_scalars=(gid_f,))
-        else:
-            fsx, fsy, fsz, fex, fey, fez = pair_accumulate_segments(
-                rows_cur, orthorhombic_lengths(self.metric), row_e, out_fn,
-                extra_fields=(gid_f,))
+        fsx, fsy, fsz, fex, fey, fez = pair_accumulate_segments(
+            rows_cur, orthorhombic_lengths(self.metric), row_e, out_fn,
+            extra_fields=(gid_f,))
         fs_rows = jnp.stack([fsx, fsy, fsz], axis=-1)
         fe_rows = jnp.stack([fex, fey, fez], axis=-1)
         idx = jnp.where(rows.valid.reshape(-1), rows.gid.reshape(-1), self.S)
@@ -347,15 +331,6 @@ class FilamentsSim:
         node_f = node_f.at[:, :-1, :].add(f_start.reshape(self.F, self.E, 3))
         node_f = node_f.at[:, 1:, :].add(f_end.reshape(self.F, self.E, 3))
         return node_f
-
-    def _pallas_ok(self, rows) -> bool:
-        from mundy_tpu.ops.pallas.row_segments import segment_vmem_bytes
-
-        ny, nz, R = rows.pos.shape[:3]
-        return (jax.default_backend() == "tpu"
-                and self.dtype == jnp.float32
-                and ny >= 5 and nz >= 5 and nz % 8 == 0
-                and segment_vmem_bytes(nz, R, 1, 6) <= 13e6)
 
     def _contact_node_forces(self, pos: Array, nmat) -> Array:
         """Hertzian segment contact -> node forces (F, M, 3); dispatches to
@@ -433,7 +408,7 @@ class FilamentsSim:
             return jnp.max(jnp.sum(disp * disp, axis=-1)) > skin_sq
 
         # skin trigger computed in the BODY, carried as a flag the cond
-        # reads (a while cond can't fuse with the body; ablate_burst.py)
+        # reads (a while cond can't fuse with the body)
         def inner_cond(carry):
             s, done, fired = carry
             return jnp.logical_and(done < target, jnp.logical_not(fired))

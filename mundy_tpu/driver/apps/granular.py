@@ -174,7 +174,7 @@ class GranularSim:
             return jnp.max(jnp.sum(disp * disp, axis=-1)) > skin_sq
 
         # skin trigger computed in the BODY, carried as a flag the cond
-        # reads (a while cond can't fuse with the body; ablate_burst.py)
+        # reads (a while cond can't fuse with the body)
         def inner_cond(carry):
             s, done, fired = carry
             return jnp.logical_and(done < target, jnp.logical_not(fired))

@@ -2,7 +2,7 @@
 narrow phase, Hertzian contact with torques, Brownian motion, rigid-body
 Euler/quaternion update.
 
-TPU re-design of the reference's rod pipeline: broad phase over rod AABBs
+JAX re-design of the reference's rod pipeline: broad phase over rod AABBs
 (ComputeAABB for spherocylinders), SpherocylinderSegmentSpherocylinderSegment
 narrow-phase + Hertzian kernels (`scrap/parameter_interface/linkers/.../
 SpherocylinderSegmentSpherocylinderSegmentHertzianContact`), contact-point
@@ -69,8 +69,8 @@ class RodsConfig:
     # slot's converged shared normal; between rebuilds seed the PGD from
     # it and skip the 7-point multistart (the full sweep runs once per
     # rebuild to initialize the slots). Contact normals are strongly
-    # step-coherent at dt where contacts persist — measured >= 3x on the
-    # per-pair cost (benchmarks/ellipsoid_bench.py).
+    # step-coherent at dt where contacts persist, so the warm start cuts
+    # the per-pair cost.
     ellipsoid_warm_start: bool = True
     ellipsoid_warm_pgd_iters: int = 6
     # frictional segment-segment contact (the CollidingFrictionalSperm
@@ -142,32 +142,24 @@ class RodsSim:
         c = self.config
         n_cells = int(c.box_size // (2 * self.search_radius))
         if n_cells >= 5:
-            # gather-free row-layout broad phase (one sort + dense argmin
-            # extraction) — the cell-list builder's candidate tables pay
-            # ~4.3 ns/row computed-index gathers and dominate the rebuild.
-            # Gated on extraction work: each of the K passes scans 9*R
-            # candidates per body, so fat-cutoff/sparse regimes (rods:
-            # R~200, K=32 -> 3.2 s/rebuild measured) must stay on the
-            # cell-list builder; contact-scale regimes (R~88, K<=16) win 3x.
-            from mundy_tpu.neighbor.rows import (make_row_grid,
+            # gather-free row-layout broad phase (one sort + dense K-nearest
+            # extraction) instead of the cell-list builder's per-particle
+            # candidate-table gathers. Gated on extraction work: the XLA
+            # extraction's K passes each scan 9*R candidates per body, so
+            # fat-cutoff/sparse regimes (rods: R~200, K=32) stay on the
+            # cell-list builder unless the extraction kernel runs
+            # (extract_kernel_ok: the K passes stay on chip).
+            from mundy_tpu.neighbor.rows import (extract_kernel_ok,
+                                                 make_row_grid,
                                                  neighbor_matrix_rows)
 
             rg = make_row_grid([0, 0, 0], (c.box_size,) * 3,
                                2 * float(self.search_radius), c.num_rods,
                                capacity_slack=self.rows_slack,
                                dtype=self.dtype, align=8)
-            # the Pallas VMEM-resident extraction lifts the fat-cutoff gate:
-            # its K passes stay on-chip (measured 3.2 s -> amortizable for
-            # rods' R ~ 176, K = 32 shapes), so rows win whenever the
-            # kernel's envelope admits the shape; the XLA extraction keeps
-            # the old work gate
-            from mundy_tpu.ops.pallas.row_extract import row_extract_vmem_ok
-            pallas_ok = (jax.default_backend() == "tpu"
-                         and self.dtype == jnp.float32
-                         and rg.ny >= 5 and rg.nz >= 5 and rg.nz % 8 == 0
-                         and row_extract_vmem_ok(rg.nz, rg.row_capacity,
-                                                 c.max_neighbors))
-            if pallas_ok or c.max_neighbors * rg.row_capacity <= 2048:
+            kernel_ok = extract_kernel_ok(rg, c.max_neighbors,
+                                          jnp.dtype(self.dtype).itemsize)
+            if kernel_ok or c.max_neighbors * rg.row_capacity <= 2048:
                 nmat = neighbor_matrix_rows(
                     pos, float(self.search_radius), (c.box_size,) * 3,
                     max_neighbors=c.max_neighbors, grid=rg)
@@ -199,9 +191,9 @@ class RodsSim:
         payload = jnp.concatenate([pos, hedge], axis=1)  # (N, 6)
         cand = payload[idx]  # (N, K, 6) — the one gather
 
-        # component planes transposed to (6, K, N): the lane (minor) axis is
-        # N, so every per-pair plane tiles the VPU fully — the (N, K, 3)
-        # vector layout pads K=32 lanes to 128 (4x) and relayouts per op
+        # component planes transposed to (6, K, N): the minor axis is N, so
+        # every per-pair plane is a wide contiguous vector — unlike an
+        # (N, K, 3) layout with a size-3 minor axis
         candT = jnp.transpose(cand, (2, 1, 0))
         ownT = payload.T  # (6, N)
         SX = candT[0] - ownT[0][None, :]
@@ -391,7 +383,7 @@ class RodsSim:
             return jnp.max(jnp.sum(disp * disp, axis=-1)) > skin_sq
 
         # skin trigger computed in the BODY, carried as a flag the cond
-        # reads (a while cond can't fuse with the body; ablate_burst.py)
+        # reads (a while cond can't fuse with the body)
         def inner_cond(carry):
             s, done, fired = carry
             return jnp.logical_and(done < target, jnp.logical_not(fired))

@@ -1,7 +1,7 @@
 """BASELINE config #1: spheres in a periodic box — Hertzian contact,
 overdamped (Stokes drag) dynamics, optional Brownian motion, explicit Euler.
 
-This is the TPU re-design of the minimal reference pipeline (SURVEY.md §7
+This is the JAX re-design of the minimal reference pipeline (SURVEY.md §7
 step 6): cell-list neighbors with a skin-distance rebuild trigger
 (HP1 driver `:1404-1427`), Hertzian pair forces
 (`SphereSphereHertzianContact.cpp`), local-drag mobility U = F/(6 pi mu r)
@@ -192,8 +192,8 @@ class SpheresSim:
     def _step(self, state: SpheresState) -> SpheresState:
         """Single step with skin-triggered rebuild (lax.cond). Fine for
         one-off stepping; run_block uses the nested-while structure instead
-        (cond-wrapped rebuilds inside lax.scan execute their branch every
-        iteration on TPU — measured 740 ms/step vs 9 ms; see commit log)."""
+        (a cond-wrapped rebuild inside lax.scan can execute its branch every
+        iteration)."""
         c = self.config
         disp = self.metric.sep(state.ref_pos, state.pos)
         moved = jnp.max(jnp.sum(disp * disp, axis=-1)) > (0.5 * c.skin) ** 2
@@ -207,7 +207,7 @@ class SpheresSim:
         """n_steps fully on-chip: outer while rebuilds, inner do-while runs
         cheap steps until the skin margin is spent or the block ends.
 
-        This is the TPU-native shape of the reference's skin-triggered
+        This is the device-resident shape of the reference's skin-triggered
         rebuild loop (HP1 `:1404-1427`): rebuild cost only when needed, and
         no conditional on the hot path.
         """
@@ -222,8 +222,7 @@ class SpheresSim:
         # The skin trigger is computed IN THE BODY and carried as a flag
         # the cond merely reads: a while cond is a separate XLA computation
         # that cannot fuse with the body, so moved() in the cond re-streams
-        # pos/ref_pos per iteration (+37 ms/step at 1M LCP,
-        # benchmarks/ablate_burst.py); the same reduction in the body fuses
+        # pos/ref_pos per iteration; the same reduction in the body fuses
         # into the step for free.
         def inner_cond(carry):
             s, done, fired = carry

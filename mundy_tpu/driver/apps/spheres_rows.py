@@ -2,7 +2,7 @@
 
 Same physics as driver.apps.spheres (BASELINE config #1) but the state lives
 in the (ny, nz, R) row layout between rebuilds: the inner step is 9 rolls +
-dense (R x R) pair blocks on the VPU with ZERO gathers/scatters, and a
+dense (R x R) pair blocks with ZERO gathers/scatters, and a
 rebuild is one sort + one N-element scatter. See neighbor/rows.py for the
 measured irregular-access costs that motivate this design.
 """
@@ -48,16 +48,13 @@ class RowSpheresState:
 class RowSpheresSim:
     """Assembled row-engine simulation for SpheresConfig."""
 
-    def __init__(self, config: SpheresConfig, capacity_slack: float = 1.9,
-                 use_pallas: Optional[bool] = None):
+    def __init__(self, config: SpheresConfig, capacity_slack: float = 1.9):
         self.config = c = config
         validate_config(config)
         self.dtype = jnp.dtype(c.dtype)
         box = np.array([c.box_size] * 3)
         self.metric = periodic(box, dtype=self.dtype)
         self.cutoff = 2 * c.radius + c.skin
-        # align=8: nz % 8 == 0 enables the Pallas half-stencil kernel
-        # (also measured slightly faster for the XLA path at 1M)
         self.grid = make_row_grid([0, 0, 0], box, self.cutoff, c.num_spheres,
                                   capacity_slack=capacity_slack,
                                   dtype=self.dtype, align=8)
@@ -75,13 +72,6 @@ class RowSpheresSim:
                                       c.num_spheres,
                                       capacity_slack=capacity_slack,
                                       dtype=self.dtype, align=8)
-        if use_pallas is None:
-            # the Mosaic kernel needs a real TPU (or interpret mode) + f32
-            use_pallas = (jax.default_backend() == "tpu"
-                          and self.dtype == jnp.float32)
-        if self.radii is not None:
-            use_pallas = False  # the Mosaic kernel assumes uniform radii
-        self.use_pallas = use_pallas
         self.inv_drag = 1.0 / (6.0 * _math.pi * c.viscosity * c.radius)
         self.e_eff = effective_youngs(c.youngs_modulus, c.youngs_modulus,
                                       c.poissons_ratio, c.poissons_ratio)
@@ -95,8 +85,7 @@ class RowSpheresSim:
                                  maxval=c.box_size)
         rows = build_rows(pos, jnp.arange(c.num_spheres, dtype=jnp.int32), self.grid)
         # Right-size the row capacity from the measured max occupancy: the
-        # pair kernel's work scales with R (sublanes) x ceil(9R/128) (lane
-        # tiles), so slack is paid every step. +12.5% margin (occupancy
+        # pair pass's work scales with R x 9R, so slack is paid every step. +12.5% margin (occupancy
         # drifts between rebuilds), 8-aligned, sticky overflow flag catches
         # later violations.
         occ = jnp.sum(rows.valid.reshape(-1, self.grid.row_capacity), axis=1)
@@ -119,16 +108,6 @@ class RowSpheresSim:
 
         g = rows.pos.shape
         use_central = (self.box_static is not None and g[0] >= 5 and g[1] >= 5)
-        if use_central and self.use_pallas and g[1] % 8 == 0:
-            # Pallas half-stencil: each off-row pair evaluated ONCE with both
-            # Newton's-third-law reductions held in VMEM — 16.5 vs 26.0 ms
-            # at 1M bodies (the XLA 9-stencil below recomputes every off-row
-            # pair from both sides because a dual-axis reduction would
-            # materialize the W*D blocks in HBM)
-            from mundy_tpu.ops.pallas.row_central import row_hertzian_forces_sym
-            return row_hertzian_forces_sym(
-                rows.pos, (c.box_size,) * 3, c.radius, c.youngs_modulus,
-                c.poissons_ratio)
         if use_central and self.radii is not None:
             # polydisperse: radii ride a payload plane; sentinel slots carry
             # r = 0 so their r_eff (hence the Hertzian magnitude) vanishes
@@ -157,11 +136,10 @@ class RowSpheresSim:
                 mag = hertzian_pair_force(d - two_r, r_eff, e_eff)
                 return -mag * rinv
 
-            # NOTE: pair_accumulate_central_sym (half stencil) does ~0.6x the
-            # elementwise work but is SLOWER under XLA (18.9 vs 27.8 steps/s
-            # at 1M): the dual-axis reduction forces the (R,5R) W*D blocks to
-            # materialize in HBM. The win needs the Pallas kernel's
-            # in-register dual accumulation (ops/pallas/row_hertz.py).
+            # The full 9-row stencil evaluates every off-row pair from both
+            # sides. pair_accumulate_central_sym (half stencil) does ~0.6x
+            # the elementwise work, but its dual-axis reduction makes XLA
+            # materialize the (R, 5R) weight blocks in device memory.
             return pair_accumulate_central(rows, self.box_static, scalar_fn)
 
         def pair_fn(sep, r2, mask):
@@ -197,13 +175,14 @@ class RowSpheresSim:
                 state.key, state.step, rows.gid, diff, c.dt,
                 dtype=self.dtype)
             vel = vel + jnp.where(rows.valid[..., None], bz, 0.0)
-        new_pos = self.metric.wrap(rows.pos + jnp.asarray(c.dt, self.dtype) * vel)
+        # no wrap between rebuilds (neighbor/rows.py): _rebuild wraps
+        new_pos = rows.pos + jnp.asarray(c.dt, self.dtype) * vel
         new_pos = jnp.where(rows.valid[..., None], new_pos, rows.pos)
         return state.replace(rows=rows.replace(pos=new_pos), step=state.step + 1)
 
     def _rebuild(self, state: RowSpheresState) -> RowSpheresState:
         c = self.config
-        flat = rows_to_flat(state.rows, c.num_spheres)
+        flat = self.positions(state)
         rows = build_rows(flat, jnp.arange(c.num_spheres, dtype=jnp.int32), self.grid)
         return state.replace(rows=rows,
                              rebuild_count=state.rebuild_count + 1,
@@ -214,7 +193,7 @@ class RowSpheresSim:
         target = jnp.asarray(n_steps, jnp.int32)
 
         # skin trigger computed in the BODY, carried as a flag the cond
-        # reads (a while cond can't fuse with the body; ablate_burst.py)
+        # reads (a while cond can't fuse with the body)
         def inner_cond(carry):
             s, done, fired = carry
             return jnp.logical_and(done < target, jnp.logical_not(fired))
@@ -256,7 +235,7 @@ class RowSpheresSim:
             # recover from (cannot happen mid-run: the sticky flag makes
             # run_blocks retry from the last complete state)
             raise RuntimeError("row state lost particles; cannot regrow")
-        pos = rows_to_flat(state.rows, c.num_spheres)
+        pos = self.positions(state)
         self.grid = self.grid.replace(
             row_capacity=grow_int(self.grid.row_capacity))
         self.__dict__.pop("_run_jit", None)
@@ -280,7 +259,8 @@ class RowSpheresSim:
 
     # diagnostics ------------------------------------------------------
     def positions(self, state: RowSpheresState) -> Array:
-        return rows_to_flat(state.rows, self.config.num_spheres)
+        return self.metric.wrap(rows_to_flat(state.rows,
+                                             self.config.num_spheres))
 
     def max_overlap(self, state: RowSpheresState) -> float:
         c = self.config

@@ -1,6 +1,6 @@
 """Configurator: YAML -> validated config -> assembled simulation.
 
-TPU-native replacement for the reference's Configurator/Driver
+Replacement for the reference's Configurator/Driver
 (`scrap/parameter_interface/driver/src/mundy_driver/Configurator.hpp:98,
 181-208`, `Driver.hpp:96`) and the per-app Teuchos ParameterList plumbing
 (`HP1...neigh_linker.cpp:867-1062`): a registry maps app names to

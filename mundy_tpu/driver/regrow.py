@@ -1,8 +1,8 @@
-"""Host-side capacity regrow: the TPU answer to dynamic topology.
+"""Host-side capacity regrow: the static-shape answer to dynamic topology.
 
 The reference creates entities/links dynamically on demand
 (`mundy/mesh/src/mundy_mesh/LinkData.hpp:159-183,446` — device-side
-request_link pools resolved by `process_requests`). A TPU program has static
+request_link pools resolved by `process_requests`). An XLA program has static
 shapes, so every structure here is capacity-bounded with a sticky on-chip
 overflow flag; this module closes the loop: when a block of steps trips the
 flag, the host grows the violated capacities, rebuilds the search

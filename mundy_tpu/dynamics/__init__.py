@@ -1,6 +1,6 @@
 """Time integration + Brownian motion.
 
-TPU-native replacement for the reference's node-Euler integration
+Replacement for the reference's node-Euler integration
 (`integrate_positions_node_euler`, HP1 driver `:1523`;
 `scrap/motion/include/mundy_motion/` NodeEuler) and ComputeBrownianVelocity
 (`scrap/parameter_interface/alens/src/mundy_alens/compute_brownian_velocity/

@@ -40,13 +40,12 @@ def brownian_velocity_keyed(key: Array, step: Array, gid: Array,
     indexed by (key, step, gid) directly — counters {3*gid, 3*gid+1,
     3*gid+2} into one threefry2x32 call — instead of positions in a
     length-N array. Engines that hold particles in permuted layouts (row
-    grid, z-slab shards) get identical noise without the gid gather
-    (~4.3 ns/row on v5e, i.e. ~4 ms/step at 1M bodies), and a shard only
+    grid, z-slab shards) get identical noise without a gid gather, and a
+    shard only
     ever generates noise for the entities it owns.
 
-    This is 2 hash blocks per entity; the earlier vmap(fold_in) +
-    vmap(normal) construction paid ~3 (measured 3.3 -> 2.3 ms at 1M on
-    v5e). threefry_2x32 pairs its counter words POSITIONALLY (ravel, split
+    This is 2 hash blocks per entity; a vmap(fold_in) + vmap(normal)
+    construction pays ~3. threefry_2x32 pairs its counter words POSITIONALLY (ravel, split
     in half), so the two words of entity e's blocks are laid out as planes:
     count (4, M) with rows (gid, gid, 0, 1) -> block A = (gid, 0), block
     B = (gid, 1) at every position — the stream depends only on (key, step,

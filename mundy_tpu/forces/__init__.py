@@ -1,6 +1,6 @@
 """Force evaluation: pairwise contact potentials + spring networks.
 
-TPU-native replacement for the reference's `EvaluateLinkerPotentials`
+Replacement for the reference's `EvaluateLinkerPotentials`
 kernels (`scrap/parameter_interface/linkers/`) and
 `compute_constraint_forcing` spring kernels
 (`scrap/parameter_interface/constraints/`). Pair forces are evaluated from

@@ -63,9 +63,8 @@ def _is_uniform(x) -> bool:
 def _pair_scalar(x: Array, idx: Array):
     """(value_i (N,1), value_j (N,K)) for a per-particle scalar field.
 
-    TPU note: scalar-column gathers from (N,) operands are pathologically
-    slow in XLA (~24 ms each at N=1e5, K=32, measured on v5e) while vector
-    gathers from (N, D) are fast — callers needing several per-particle
+    Gather note: gather cost is mostly per row, so callers needing several
+    per-particle
     parameters must pack them into one (N, D) array and gather once.
     """
     return x[:, None], x[idx]
@@ -85,7 +84,7 @@ def contact_forces(
     """
     n = pos.shape[0]
     idx = jnp.minimum(nmat.idx, n - 1)  # clamp padding
-    pj = pos[idx]  # (N, K, 3) — vector gather (fast on TPU)
+    pj = pos[idx]  # (N, K, 3) — one vector gather
     if metric is None:
         sepv = pj - pos[:, None, :]
     else:
@@ -117,7 +116,7 @@ def hertzian_contact_forces(
 
     Uniform (scalar) radius/youngs/poisson take a gather-free fast path;
     per-particle arrays are packed into one (N, 3) parameter block so a
-    single vector gather serves all three (see _pair_scalar TPU note).
+    single vector gather serves all three (see _pair_scalar).
     """
     uniform = all(_is_uniform(v) for v in (radius, youngs, poisson))
     if uniform:

@@ -241,5 +241,6 @@ def remap_row_history(old_idx: Array, old_mask: Array, old_vals: Array,
     constraints.remap_gamma; ref: persistent linker entities)."""
     hit = ((old_idx[:, None, :] == new_idx[:, :, None])
            & old_mask[:, None, :] & new_mask[:, :, None])
+    # HIGHEST: a one-hot product must carry the history exactly (no TF32)
     return jnp.einsum("npq,nq...->np...", hit.astype(old_vals.dtype),
-                      old_vals)
+                      old_vals, precision=jax.lax.Precision.HIGHEST)

@@ -99,8 +99,7 @@ def fenewca_chain_forces(
 
     Scatter-free: bond vectors are shifted slices and the per-bead
     accumulation is two shifted adds, vs the generic kernel's (nb,)
-    scatter-add (~90 ns/row on v5e — 180 ms at 1M beads; this runs in
-    ~5 ms). Arithmetic is identical per bond, so results match
+    scatter-add. Arithmetic is identical per bond, so results match
     fenewca_spring_forces on the equivalent bond list bit-for-bit.
     """
     n = pos.shape[0]

@@ -1,6 +1,6 @@
 """Geometry layer: primitives, distances, AABBs, periodic metrics.
 
-TPU-native replacement for MundyGeom (reference `mundy/geom/`, SURVEY.md
+Replacement for MundyGeom (reference `mundy/geom/`, SURVEY.md
 §2.3). Every primitive is a pytree dataclass whose fields are arrays with
 leading batch axes (structure-of-arrays), so a `Sphere` IS a batch of spheres
 and every distance function is a batched kernel by construction — the

@@ -705,13 +705,13 @@ def distance_circle3d_circle3d(c1: Circle3D, c2: Circle3D,
 def segment_closest_planes(SX, SY, SZ, oex, oey, oez, cex, cey, cez,
                            eps=None):
     """Clamped segment-segment closest points on COMPONENT PLANES — the
-    TPU-native layout for batched narrow phases (no (..., 3) minor axis, so
-    arbitrary plane shapes tile the VPU's (8, 128) registers directly).
+    layout for batched narrow phases (no (..., 3) minor axis, so arbitrary
+    plane shapes vectorize directly).
 
     Inputs are broadcast-compatible planes: S = (cand midpoint - own
     midpoint, minimum image already applied), own half-edges oe*, candidate
     half-edges ce* (endpoints = mid -/+ e). Same arithmetic as
-    neighbor/rows._segment_pair_chunk and ops/pallas/row_segments._pair_block
+    neighbor/rows._segment_pair_chunk
     (edge-clamped Lumelsky with a continuous min-of-5-candidates selection
     instead of the near-parallel threshold switch; reference algorithm
     distance/LineSegmentLineSegment.hpp:51-200).

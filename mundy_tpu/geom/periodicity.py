@@ -26,10 +26,9 @@ class Metric:
     inv_cell: its inverse; periodic: (..., 3) bool per-axis flags.
 
     `diagonal` (static) marks orthorhombic cells: the fractional maps become
-    elementwise multiplies. TPU correctness note: the triclinic einsum path
-    MUST run at HIGHEST precision — the default matmul precision routes the
-    3x3 contraction through the MXU in bfloat16, quantizing every wrapped
-    position to ~box/256 (observed as 0.1-unit position jumps at box=28).
+    elementwise multiplies. Correctness note: the triclinic einsum path
+    MUST run at HIGHEST precision — a reduced-precision matmul (bfloat16 or
+    TF32) quantizes every wrapped position to ~box/256 .. box/2048.
     """
 
     cell: Array

@@ -1,7 +1,7 @@
 """Rigid transforms of points and primitives.
 
 Replaces the reference's per-primitive `transform.hpp:1-420` overload
-family: on TPU a rigid transform is (unit quaternion q, translation t)
+family: here a rigid transform is (unit quaternion q, translation t)
 applied to the arrays of a primitive pytree — positions map as
 x' = R(q) x + t, directions/normals rotate, orientations compose, scalars
 (radii/lengths) are invariant. One dispatcher covers all 11 primitives

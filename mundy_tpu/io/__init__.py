@@ -1,6 +1,6 @@
 """IO: checkpoint/restart, trajectory output, step telemetry.
 
-TPU-native replacement for the reference's IOBroker
+Replacement for the reference's IOBroker
 (`scrap/parameter_interface/io/src/mundy_io/IOBroker.hpp:64-252`): Exodus
 results/restart databases become (a) pytree checkpoints (npz, any state
 pytree round-trips losslessly) and (b) VTK/XYZ trajectory writers for

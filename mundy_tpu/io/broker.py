@@ -1,6 +1,6 @@
 """Results IO broker: periodic trajectory frames + final VTK snapshot.
 
-The TPU-native role of the reference's `IOBroker` (`scrap/parameter_interface/
+The JAX role of the reference's `IOBroker` (`scrap/parameter_interface/
 io/src/mundy_io/IOBroker.hpp:64`): Exodus results databases written every
 `io_frequency` steps (`write_io_broker_timestep`, `IOBroker.hpp:252`, driven
 from the HP1 time loop at `HP1...neigh_linker.cpp:1518`) become CRC-checked

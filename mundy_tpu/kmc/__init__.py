@@ -1,6 +1,6 @@
 """Kinetic Monte Carlo crosslinker binding/unbinding.
 
-TPU-native replacement for the reference's crosslinker KMC machinery
+Replacement for the reference's crosslinker KMC machinery
 (`scrap/hp1_mock_reworks/HP1_mock_rework_agents_text_mesh_neigh_linker.cpp:
 177-360` and `scrap/parameter_interface/alens/.../actions_crosslinkers.hpp`).
 """

@@ -1,6 +1,6 @@
 """Math layer: small-vector algebra, quaternions, SFC keys, solvers.
 
-TPU-native replacement for MundyMath (reference `mundy/math/`, SURVEY.md
+Replacement for MundyMath (reference `mundy/math/`, SURVEY.md
 §2.2). The reference's accessor/ownership-templated `AVector`/`Matrix`/
 `Quaternion` views collapse to plain jnp arrays with trailing-dim conventions
 (`(..., 3)` vectors, `(..., 3, 3)` matrices, `(..., 4)` wxyz quaternions) —

@@ -6,7 +6,7 @@ Replaces the reference's dlib-style `find_min_using_approximate_derivatives`
 reference calls *inside device kernels* (e.g. the ellipsoid–ellipsoid distance
 minimization, `mundy/geom/src/mundy_geom/distance/EllipsoidEllipsoid.hpp`).
 
-TPU design: static-shape history buffers + `lax.while_loop`, so one instance
+Design: static-shape history buffers + `lax.while_loop`, so one instance
 compiles once and `vmap` runs millions of independent minimizations in
 lockstep (the per-contact-pair case). Gradients come from `jax.grad` by
 default — strictly better than the reference's central differences — with
@@ -27,6 +27,11 @@ class MinimizeResult(NamedTuple):
     f: Array
     num_iters: Array
     converged: Array
+
+
+def _dot(a, b):
+    """f32 inner product at full precision (no TF32)."""
+    return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def _central_differences(f: Callable, eps: float) -> Callable:
@@ -87,7 +92,7 @@ def minimize_lbfgs(
             q, alphas = carry
             idx = (k - 1 - i) % m
             valid = rho[idx] != 0.0
-            a = jnp.where(valid, rho[idx] * jnp.dot(S[idx], q), 0.0)
+            a = jnp.where(valid, rho[idx] * _dot(S[idx], q), 0.0)
             q = q - a * Y[idx]
             return q, alphas.at[idx].set(a)
 
@@ -95,22 +100,22 @@ def minimize_lbfgs(
 
         # Initial Hessian scaling gamma = s·y / y·y from the newest pair.
         newest = (k - 1) % m
-        yy = jnp.dot(Y[newest], Y[newest])
-        sy = jnp.dot(S[newest], Y[newest])
+        yy = _dot(Y[newest], Y[newest])
+        sy = _dot(S[newest], Y[newest])
         gamma = jnp.where(yy > 0.0, sy / jnp.maximum(yy, 1e-30), 1.0)
         r = gamma * q
 
         def fwd(i, r):
             idx = (k - m + i) % m
             valid = rho[idx] != 0.0
-            b = jnp.where(valid, rho[idx] * jnp.dot(Y[idx], r), 0.0)
+            b = jnp.where(valid, rho[idx] * _dot(Y[idx], r), 0.0)
             return r + (alphas[idx] - b) * S[idx]
 
         return jax.lax.fori_loop(0, m, fwd, r)
 
     def linesearch(x, fx, g, d):
         """Backtracking Armijo: t <- t/2 until sufficient decrease."""
-        gd = jnp.dot(g, d)
+        gd = _dot(g, d)
         c1 = jnp.asarray(1e-4, dtype)
 
         def body(i, carry):
@@ -134,7 +139,7 @@ def minimize_lbfgs(
         x, fx, g, S, Y, rho, k, _done = state
         d = -two_loop(g, S, Y, rho, k)
         # Safeguard: fall back to steepest descent if d isn't a descent dir.
-        descent = jnp.dot(g, d) < 0.0
+        descent = _dot(g, d) < 0.0
         d = jnp.where(descent, d, -g)
 
         t = linesearch(x, fx, g, d)
@@ -143,7 +148,7 @@ def minimize_lbfgs(
 
         s = x_new - x
         y = g_new - g
-        sy = jnp.dot(s, y)
+        sy = _dot(s, y)
         slot = k % m
         ok = sy > 1e-30  # curvature condition; skip update otherwise
         S = S.at[slot].set(jnp.where(ok, s, S[slot]))

@@ -1,7 +1,7 @@
 """Batched small-vector algebra over trailing axes.
 
 Replaces the reference's `AVector`/`Matrix3` operator machinery
-(`mundy/math/src/mundy_math/Vector.hpp:112`, `Matrix.hpp`): on TPU a "Vector3"
+(`mundy/math/src/mundy_math/Vector.hpp:112`, `Matrix.hpp`): here a "Vector3"
 is any array of shape `(..., 3)` and every operation broadcasts over leading
 batch axes, so the zero-copy Shifted/Strided/Masked accessor views of the
 reference are simply array slices.

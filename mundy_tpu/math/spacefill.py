@@ -2,7 +2,7 @@
 
 Replaces the reference's `zmort.hpp` float-Morton comparators
 (`mundy/math/src/mundy_math/zmort.hpp:167-230`) and recursive Hilbert
-generator (`mundy/math/src/mundy_math/Hilbert.hpp:48,90`). On TPU we sort by
+generator (`mundy/math/src/mundy_math/Hilbert.hpp:48,90`). Here we sort by
 explicit integer keys (XLA has a fast on-device sort) instead of comparator
 trees: Morton/Hilbert keys give cache/shard locality for cell lists and for
 Hilbert-ordered resharding (the load-balance analog of `stk::balance` RCB).

@@ -5,7 +5,7 @@ Replaces the reference's `mundy/math/src/mundy_math/Tolerance.hpp`
 thresholds used by distance kernels, solvers, and tests. The values follow
 the reference's convention of a few orders of magnitude above machine
 epsilon (room for accumulated rounding in compound kernels), extended with
-the TPU-relevant bfloat16 entry.
+a bfloat16 entry.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Mechanical elements: rods, joints.
 
-TPU-native replacement for MundyMech (reference `mundy/mech/`, SURVEY.md
+Replacement for MundyMech (reference `mundy/mech/`, SURVEY.md
 §2.4). The reference's owning/view spring-joint primitives (HookeanSpring,
 FeneSpring, TorsionalSpring, BallJoint) become parameter arrays +
 connectivity index arrays evaluated by `mundy_tpu.forces.springs`; the

@@ -178,7 +178,7 @@ def rod_internal_forces(
     """(node_forces (..., N, 3), node_twist_torque (..., N)).
 
     Exact negative gradients of the discrete energy via autodiff — the
-    TPU-native replacement for the reference's hand-derived distribution
+    Replacement for the reference's hand-derived distribution
     (compute_internal_force_and_twist_torque, Sperm.cpp `:725-860`), whose
     sign conventions are tied to its reversed quaternion convention
     (REDESIGN.md:10 "Our quaternion is backwards"). The energy discretization

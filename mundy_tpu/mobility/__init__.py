@@ -1,6 +1,6 @@
 """Mobility operators: force -> velocity maps for Stokes suspensions.
 
-TPU-native replacement for the reference's mobility layer
+Replacement for the reference's mobility layer
 (`scrap/parameter_interface/alens/src/mundy_alens/compute_mobility/` with
 LocalDragNonOrientableSpheres and RPYSpheres techniques, and the team-based
 RPY kernel of `scrap/lcp_spheres/StkNgpLCP.cpp:296-390`). All operators are

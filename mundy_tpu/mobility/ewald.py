@@ -1,9 +1,9 @@
 """Ewald-split periodic RPY mobility (the long-range Stokes path).
 
 The reference plans PVFMM/STKFMM for long-range Stokes sums
-(`TPLsList.cmake:29-30`, marked experimental); the TPU-native equivalent is
-an Ewald decomposition whose wave-space sum is dense matmuls over k-modes
-(MXU work), per SURVEY.md §5.
+(`TPLsList.cmake:29-30`, marked experimental); the equivalent here is
+an Ewald decomposition whose wave-space sum is dense matmuls over k-modes,
+per SURVEY.md §5.
 
 Split (Hasimoto screening):
     M(k) = (I - k_hat k_hat) sinc^2(k a) / (eta k^2)        [exact RPY in k]
@@ -204,8 +204,8 @@ def real_scalars(op: EwaldRPY, r: Array, rinv: Array):
 
     The RPY branches (kink at r = 2a) are analytic; the smooth window W
     comes from the Chebyshev interpolants. Replaces _interp_tables' two
-    per-pair table gathers (~9 ns/element on v5e — at 1M bodies x 216
-    hydro neighbors those gathers alone cost ~1 s per mobility apply)."""
+    per-pair table gathers (at 1M bodies x 216 hydro neighbors, 2e8
+    gathered elements per mobility apply)."""
     a = op.radius
     eta = op.viscosity
     c8 = rinv / (8 * math.pi * eta)
@@ -292,7 +292,7 @@ def rpy_real_cells_kernel(op: EwaldRPY):
 
 def ewald_wave_apply(op: EwaldRPY, pos: Array, forces: Array,
                      chunk_k: int = 4096) -> Array:
-    """Wave-space sum as dense matmuls over k-mode chunks (MXU path).
+    """Wave-space sum as dense matmuls over k-mode chunks.
 
     u_i = sum_k c(k) (I - khat khat) [cos(k.x_i) Sc(k) + sin(k.x_i) Ss(k)]
     with Sc = sum_j cos(k.x_j) f_j, Ss = sum_j sin(k.x_j) f_j.
@@ -315,10 +315,9 @@ def ewald_wave_apply(op: EwaldRPY, pos: Array, forces: Array,
         cosp = jnp.cos(phase)
         sinp = jnp.sin(phase)
         # project forces transverse per mode: P f = f - khat (khat . f).
-        # All matmuls pinned HIGHEST: the MXU's bf16 default quantizes the
-        # O(1) structure factors to ~0.4% — measured 2.9e-3 relative error
-        # in the wave sum on v5e.
-        fk_c = jnp.dot(cosp.T, forces, precision=hi)  # (Kc, 3) MXU
+        # All matmuls pinned HIGHEST: a bf16 or TF32 product quantizes the
+        # O(1) structure factors to ~0.1-0.4%.
+        fk_c = jnp.dot(cosp.T, forces, precision=hi)  # (Kc, 3)
         fk_s = jnp.dot(sinp.T, forces, precision=hi)
         kdotc = jnp.sum(kvc * fk_c, axis=1) / k2
         kdots = jnp.sum(kvc * fk_s, axis=1) / k2
@@ -336,12 +335,12 @@ def ewald_real_apply(op: EwaldRPY, pos: Array, forces: Array,
     """Real-space correction over the neighbor matrix (cutoff >= r_cut).
 
     Chunked over particles: at 1M bodies x 216 hydro neighbors the (N, K, 3)
-    pair temporaries are ~2.5 GB EACH and several stay live — the unchunked
-    graph alone blows the v5e HBM budget."""
+    pair temporaries are ~2.5 GB EACH and several stay live; chunks bound
+    them by hbm_budget_bytes."""
     n, k = nmat.idx.shape
     itemsize = jnp.dtype(pos.dtype).itemsize
     # pack positions + forces: ONE (rows, K) gather instead of two (gather
-    # cost is per row on TPU, independent of row width)
+    # cost is mostly per row, not per element)
     pf = jnp.concatenate([pos, forces], axis=1)  # (N, 6)
     use_cheb = len(op.cheb_fw) > 0
 

@@ -153,7 +153,7 @@ def _k_apply_free(op: FreeSpaceStokes, grid: Array) -> Array:
     coefficient is Mhat/V = khat h^3/V = khat/G^3."""
     se = op.se
     G = se.grid_n
-    # keep f64 grids f64 (CPU validation); f32 elsewhere (TPU)
+    # keep f64 grids f64 (CPU validation); f32 otherwise
     ft = grid.dtype if grid.dtype == jnp.float64 else jnp.float32
     fhat = jnp.fft.rfftn(grid.astype(ft), axes=(0, 1, 2))
     assert se.window == "es"
@@ -180,7 +180,7 @@ def _shift(op: FreeSpaceStokes, pos: Array) -> Array:
 def freespace_wave_apply(op: FreeSpaceStokes, pos: Array,
                          forces: Array) -> Array:
     """Smooth-remainder sum on the padded grid (scatter gridding; the
-    dense MXU gridding path applies identically at scale)."""
+    dense gridding path applies identically at scale)."""
     p = _shift(op, pos)
     grid = se_spread(op.se, p, forces)
     ugrid = _k_apply_free(op, grid)
@@ -189,9 +189,9 @@ def freespace_wave_apply(op: FreeSpaceStokes, pos: Array,
 
 def freespace_wave_apply_dense(op: FreeSpaceStokes, geom, pos: Array,
                                forces: Array, pieces=None):
-    """Wave sum with the dense MXU gridding (at-scale path). Returns
+    """Wave sum with the dense gridding (at-scale path). Returns
     (u, overflow)."""
-    from mundy_tpu.ops.pallas.se_grid import (se_bin_dense, se_interp_dense,
+    from mundy_tpu.ops.se_grid import (se_bin_dense, se_interp_dense,
                                               se_spread_dense)
 
     p = _shift(op, pos)

@@ -1,6 +1,6 @@
 """No-slip periphery confinement via a dense boundary-integral method.
 
-TPU-native replacement for the reference periphery
+Replacement for the reference periphery
 (`scrap/parameter_interface/alens/src/mundy_alens/periphery/Periphery.hpp`):
 a closed surface (sphere/ellipsoid shell) discretized by quadrature nodes
 enforces no-slip on the enclosed suspension. Pipeline (FastDirectPeriphery,
@@ -17,8 +17,8 @@ enforces no-slip on the enclosed suspension. Pipeline (FastDirectPeriphery,
    `write_matrix_to_file:217`);
 4. per step: surface densities q = -M^{-1} u_slip
    (`compute_surface_forces:2125-2140`), then the correction flow at any
-   interior point via the double-layer evaluation (one (3N_t x 3N_q) matmul
-   — MXU-friendly).
+   interior point via the double-layer evaluation (one (3N_t x 3N_q)
+   matmul).
 """
 
 from __future__ import annotations
@@ -167,8 +167,8 @@ def surface_densities(periphery: Periphery, u_slip: Array) -> Array:
 
     u_slip (Q, 3): ambient velocity evaluated at the surface nodes.
     """
-    # HIGHEST precision: the default TPU matmul precision (bf16 on the MXU)
-    # would inject ~1e-2 relative error into the no-slip balance.
+    # HIGHEST precision: a reduced-precision product (bf16 or TF32) would
+    # inject ~1e-3..1e-2 relative error into the no-slip balance.
     q = -jnp.dot(periphery.m_inv, u_slip.reshape(-1),
                  precision=jax.lax.Precision.HIGHEST)
     return q.reshape(-1, 3)
@@ -178,7 +178,7 @@ def double_layer_flow(periphery: Periphery, q: Array, targets: Array) -> Array:
     """Correction flow at interior targets from surface densities q.
 
     u_i(x_t) = -3/(4 pi) sum_s w_s (r.n_s)(r.q_s) r_i / r^5 — evaluated as
-    dense batched contractions (MXU path at large Q x T).
+    dense batched contractions.
     """
     r = targets[:, None, :] - periphery.points[None, :, :]  # (T, Q, 3)
     r2 = jnp.sum(r * r, axis=-1)

@@ -2,12 +2,12 @@
 periodic Stokes mobility.
 
 The reference plans PVFMM/STKFMM kernel-aggregated Stokes FMM for long-range
-hydrodynamics (`TPLsList.cmake:29-30`, `dep/install_pvfmm.sh`); the TPU-native
-equivalent of that O(N)/O(N log N) path is the spectral Ewald method
+hydrodynamics (`TPLsList.cmake:29-30`, `dep/install_pvfmm.sh`); the
+equivalent here of that O(N)/O(N log N) path is the spectral Ewald method
 (Lindbo & Tornberg 2011): Gaussian-window gridding -> 3D FFT -> per-mode
 RPY x Hasimoto screening (mobility/ewald.py's k-space factors) -> inverse
 FFT -> Gaussian interpolation. FFTs and the k-space multiply are dense
-XLA ops (MXU/VPU friendly); gridding is the only irregular step.
+XLA ops; gridding is the only irregular step.
 
 Math (shape splitting): the Hasimoto screen exp(-k^2/4xi^2) is factored as
     exp(-(1-eta) k^2/4xi^2) * [exp(-eta k^2/8xi^2)]^2
@@ -29,7 +29,6 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import Array
@@ -261,7 +260,7 @@ def se_interpolate(op: SpectralEwaldRPY, pos: Array, grid: Array) -> Array:
 
 def se_wave_apply(op: SpectralEwaldRPY, pos: Array, forces: Array) -> Array:
     """Wave-space RPY sum via FFTs (scatter gridding — small N / reference
-    path; use se_wave_apply_rows at scale). (N, 3) velocities.
+    path; use se_wave_apply_dense at scale). (N, 3) velocities.
 
     Normalization: fhat = (1/h^3) ghat(k) Fhat(k) (unnormalized rfftn of the
     spread field); u2(x_g) = G^3 h^3 irfftn(kcoeff P fhat) — the
@@ -312,12 +311,13 @@ def _k_apply(op: SpectralEwaldRPY, grid: Array) -> Array:
 
 def make_se_geometry(op: SpectralEwaldRPY, n_particles: int,
                      capacity_slack: float = 1.15):
-    """Row-gridding geometry for the Pallas spread/interp kernels.
+    """(y, z)-column gridding geometry for the dense spread/interp
+    (ops/se_grid.SEGridRows).
 
     `capacity_slack` scales the Poisson-max slot bound: the default fits
     near-uniform suspensions; clustered systems (touching-bead chains) need
     more — overflowed slots are dropped from the wave sum (flagged)."""
-    from mundy_tpu.ops.pallas.se_grid import make_se_grid_rows
+    from mundy_tpu.ops.se_grid import make_se_grid_rows
 
     return make_se_grid_rows(op.grid_n, op.support, op.base.box,
                              op.base.xi, op.eta, n_particles,
@@ -325,40 +325,13 @@ def make_se_geometry(op: SpectralEwaldRPY, n_particles: int,
                              kind=op.window, beta=op.es_beta)
 
 
-def se_wave_apply_rows(op: SpectralEwaldRPY, geom, pos: Array, forces: Array,
-                       interpret=None, pieces=None):
-    """Wave-space sum with Pallas row gridding (the at-scale path; the
-    scatter gridding of se_wave_apply costs ~8.6 ns/element and dies beyond
-    ~1e4 bodies). Returns (u, overflow).
-
-    Pass precomputed `pieces` (se_bin_and_windows) to amortize the binning
-    sort + window evaluation across repeated applies at fixed positions —
-    e.g. the O(10-100) mobility products inside one BBPGD collision solve."""
-    from mundy_tpu.ops.pallas.se_grid import (
-        se_bin_and_windows,
-        se_interp_rows_pre,
-        se_spread_rows_pre,
-    )
-
-    if interpret is None:  # Pallas TPU kernels interpret on CPU backends
-        interpret = jax.default_backend() == "cpu"
-    dtype = forces.dtype
-    if pieces is None:
-        pieces = se_bin_and_windows(geom, pos, dtype)
-    grid = se_spread_rows_pre(geom, pieces, forces, interpret)
-    ugrid = _k_apply(op, grid)
-    u = se_interp_rows_pre(geom, pieces, pos.shape[0],
-                           ugrid.astype(dtype), interpret)
-    return u, pieces[1]
-
-
 def make_se_geometry_tiles(op: SpectralEwaldRPY, n_particles: int,
                            capacity_slack: float = 1.15):
-    """3D-tile gridding geometry (ops/pallas/se_grid.SEGridTiles): bounds
+    """3D-tile gridding geometry (ops/se_grid.SEGridTiles): bounds
     slot occupancy LOCALLY on all three axes, unlike the (y, z)-column row
     decomposition whose capacity a chain clustered along x blows up to the
     chain length (se_R = 1688 at 1M clustered chromatin)."""
-    from mundy_tpu.ops.pallas.se_grid import make_se_grid_tiles
+    from mundy_tpu.ops.se_grid import make_se_grid_tiles
 
     return make_se_grid_tiles(op.grid_n, op.support, op.base.box,
                               op.base.xi, op.eta, n_particles,
@@ -369,7 +342,7 @@ def make_se_geometry_tiles(op: SpectralEwaldRPY, n_particles: int,
 def se_bin_geom(geom, pos: Array, dtype=jnp.float32):
     """Binning for either dense-gridding geometry (rows or 3D tiles);
     overflow stays at pieces[1] in both layouts."""
-    from mundy_tpu.ops.pallas.se_grid import (SEGridTiles, se_bin_dense,
+    from mundy_tpu.ops.se_grid import (SEGridTiles, se_bin_dense,
                                               se_bin_tiles)
 
     if isinstance(geom, SEGridTiles):
@@ -379,15 +352,14 @@ def se_bin_geom(geom, pos: Array, dtype=jnp.float32):
 
 def se_wave_apply_dense(op: SpectralEwaldRPY, geom, pos: Array,
                         forces: Array, pieces=None):
-    """Wave-space sum with dense MXU gridding (ops/pallas/se_grid.py):
-    the spread/interp contractions run as batched matmuls — pure XLA, no
-    Mosaic, ~8x the per-slot Pallas kernels at 1M. `geom` selects the
+    """Wave-space sum with dense gridding (ops/se_grid.py): the
+    spread/interp contractions run as batched matmuls. `geom` selects the
     decomposition: SEGridTiles (3D tiles — the clustered-safe layout) or
     SEGridRows ((y, z) columns). Returns (u, overflow).
 
     `pieces` from se_bin_geom amortizes the binning sort across repeated
     applies at fixed positions (the BBPGD solve's mobility products)."""
-    from mundy_tpu.ops.pallas.se_grid import (
+    from mundy_tpu.ops.se_grid import (
         SEGridTiles,
         se_interp_dense,
         se_interp_tiles,
@@ -413,9 +385,9 @@ def se_rpy_apply_cells(op: SpectralEwaldRPY, cells, pos: Array,
                        forces: Array, box_lengths, geom,
                        pieces=None):
     """Full periodic RPY product with the dense 3D-cell real-space engine
-    (neighbor.cells3d) + dense MXU wave gridding — the at-scale path: no
-    neighbor matrix anywhere (its K-pass build cost 20 s at 262k with wide
-    hydro cutoffs). The cells engine's self-pair term IS self_coeff, so no
+    (neighbor.cells3d) + dense wave gridding — the at-scale path: no
+    neighbor matrix anywhere (its K-pass build is the cost at wide hydro
+    cutoffs). The cells engine's self-pair term IS self_coeff, so no
     separate self add. `cells` from build_cells3d with edge >= base.r_cut,
     rebuilt whenever positions move (one sort + scatter).
 
@@ -444,23 +416,18 @@ def se_rpy_apply_cells(op: SpectralEwaldRPY, cells, pos: Array,
 
 
 def se_rpy_apply(op: SpectralEwaldRPY, pos: Array, forces: Array,
-                 nmat, metric, geom=None, interpret=None,
-                 pieces=None, dense: bool = True) -> Array:
+                 nmat, metric, geom=None, pieces=None) -> Array:
     """Full periodic RPY product: real (tables) + wave (FFT) + self.
 
-    Pass `geom` (make_se_geometry) to route gridding through the Pallas row
-    kernels instead of scatter/gather; `pieces` (se_bin_and_windows) to
-    amortize binning across applies at fixed positions."""
+    Pass `geom` (make_se_geometry / make_se_geometry_tiles) to route
+    gridding through the dense contractions instead of scatter/gather;
+    `pieces` (se_bin_geom) to amortize binning across applies at fixed
+    positions."""
     from mundy_tpu.mobility.ewald import ewald_real_apply
 
     u = ewald_real_apply(op.base, pos, forces, nmat, metric)
     if geom is not None:
-        if dense:
-            uw, _ovf = se_wave_apply_dense(op, geom, pos, forces,
-                                           pieces=pieces)
-        else:
-            uw, _ovf = se_wave_apply_rows(op, geom, pos, forces, interpret,
-                                          pieces=pieces)
+        uw, _ovf = se_wave_apply_dense(op, geom, pos, forces, pieces=pieces)
         u = u + uw
     else:
         u = u + se_wave_apply(op, pos, forces)

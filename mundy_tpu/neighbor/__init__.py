@@ -1,6 +1,6 @@
 """Neighbor search: Morton-sorted cell lists + capacity-bounded pair lists.
 
-TPU-native replacement for the reference's broad-phase pipeline
+Replacement for the reference's broad-phase pipeline
 (`mundy/mesh/src/mundy_mesh/GenNeighborLinkers.hpp:295-741`): instead of a
 GPU BVH (`MORTON_LBVH`) + MPI ghosting + dynamic linker entities, we bin
 particles into a dense cell grid (static shapes), read the 27 neighboring

@@ -171,7 +171,7 @@ def _compact_rows(cand: Array, ok: Array, k: int, empty_marker: int):
     cand/ok: (rows, ncand). Returns (idx (rows, k), mask (rows, k),
     count (rows,)). The column of the j-th hit is the first c with
     cumsum(ok)[c] >= j+1 — located with ceil(log2(ncand)) take_along_axis
-    gathers, the cheapest primitive for this job on TPU.
+    gathers (no sort, no scatter).
     """
     rows, ncand = cand.shape
     c = jnp.cumsum(ok, axis=1, dtype=jnp.int32)
@@ -272,10 +272,9 @@ def neighbor_matrix(
             ex = sl(excl_p)  # (chunk, E)
             ok &= jnp.all(cand[:, :, None] != ex[:, None, :], axis=-1)
 
-        # compact each row to its first K hits. TPU op-cost reality (measured
-        # at 100k, 432 candidates/row): argsort ~800 ms, top_k ~650 ms,
-        # scatter ~240 ms — but take_along_axis gathers are cheap, so find
-        # the k-th hit's column by binary search on the row cumsum.
+        # compact each row to its first K hits without a sort, top_k or
+        # scatter: find the k-th hit's column by binary search on the row
+        # cumsum (take_along_axis gathers).
         row_idx, row_ok, count = _compact_rows(cand, ok, max_neighbors, n)
         return row_idx, row_ok, jnp.any(count > max_neighbors)
 
@@ -383,16 +382,15 @@ def build_pair_list_ordered(nmat: NeighborMatrix, capacity: int) -> PairList:
 
     Each unordered contact appears twice — (i, j) and (j, i) — which makes
     one-sided force assembly a single sorted segmented reduction
-    (ops/segments.py) instead of a two-sided scatter: the TPU-native layout
-    for the LCP collision pipeline. Padded i = j = N keeps the array sorted
+    (ops/segments.py) instead of a two-sided scatter: the deterministic
+    layout for the LCP collision pipeline. Padded i = j = N keeps the array sorted
     for the window binary search.
 
     Requires the neighbor matrix to be FRONT-PACKED (valid entries occupy
     the first count_i lanes of each row — true for both builders, which
     compact rows in hit order): compaction then needs no scatter at all —
     jnp.repeat expands row ids by their counts and a (C,)-row gather pulls
-    the neighbor ids (34 vs 443 ms at 1M x K=12 on v5e; scatter costs
-    ~90 ns/row regardless of how many rows actually write).
+    the neighbor ids.
     """
     n, k = nmat.idx.shape
     cnt = jnp.sum(nmat.mask, axis=1, dtype=jnp.int32)

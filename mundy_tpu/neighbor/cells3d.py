@@ -17,7 +17,7 @@ This engine is the 3D completion of the row idea:
   shifts over the three grid axes with periodic image pre-shifts applied
   per axis — ZERO per-pair minimum-image work and zero gathers;
 - a pairwise tensor kernel (e.g. the RPY real-space correction) runs on
-  dense (C, 27C) pair blocks on the VPU, with per-slot payload channels
+  dense (C, 27C) pair blocks, with per-slot payload channels
   (forces) riding the same rolled planes.
 
 ref: this replaces the reference's neighbor-linker pipeline for the hydro
@@ -228,12 +228,12 @@ def gather_from_flat(state: Cells3DState, values: Array) -> Array:
 # Density-split engine: the dense layout pays the GLOBAL max occupancy C in
 # every cell, and the pair scan costs ~ C^2 per cell — clustered states
 # (HP1 chromatin globules: measured max 50 vs mean 12 at r_cut 3.5) waste
-# (C_max / C_mean)^2 ~ 15-35x of the VPU-bound pair evaluations. The split
+# (C_max / C_mean)^2 ~ 15-35x of the compute-bound pair evaluations. The split
 # keeps a BASE grid at a low capacity C_lo (~2x mean) plus a COMPACT list
 # of the few dense cells carrying the excess particles; the quadratic pass
 # runs at C_lo^2 and the dense-cell corrections run over O(DC) cells, not
 # O(n_cells). ref: the reference offloads this whole interaction class to
-# PVFMM (TPLsList.cmake:29) — this split is the TPU-dense-engine answer to
+# PVFMM (TPLsList.cmake:29) — this split is the dense-engine answer to
 # the same clustering problem.
 # ---------------------------------------------------------------------------
 

@@ -1,22 +1,25 @@
 """Dense row-grid engine: gather-free neighbor interactions.
 
-Motivation (measured on TPU v5e at N=1e5): every irregular-access primitive
-costs ~5-10 ns/element — argsort ~800 ms, top_k ~650 ms, scatter ~240 ms,
-take_along ~7 ns/elem — so ANY per-pair candidate materialization dominates
-the step. This engine removes irregular access from the hot path entirely:
+Motivation: irregular-access primitives (argsort, top_k, scatter,
+computed-index gathers) cost far more per element than dense arithmetic,
+so per-pair candidate materialization tends to dominate a contact step.
+This engine removes irregular access from the hot path entirely:
 
 - particles live in a dense (ny, nz, R) row layout: a "row" is the full x
   extent of one (y, z) cell column, padded to R slots (structure-of-arrays
-  with validity masks — the bucketed-mesh idea of STK, shaped for the VPU);
+  with validity masks — the bucketed-mesh idea of STK, shaped for vector
+  units);
 - neighbor candidates of a row are the 9 rows (y+dy, z+dz): obtained by
   `jnp.roll` over the (ny, nz) axes — pure regular data movement, periodic
   wrap included (min-image metrics fix the coordinate offsets);
-- pair interactions are dense (R x R) blocks on the VPU — more FLOPs than a
-  compacted neighbor list, but zero gathers, and FLOPs are free relative to
-  irregular memory on TPU;
+- pair interactions are dense (R x R) blocks — more FLOPs than a
+  compacted neighbor list, but zero gathers;
 - the state STAYS in row layout between rebuilds; a rebuild is one argsort
-  of N keys + one N-element scatter (~10 ms at 1e5), triggered by the skin
-  displacement check.
+  of N keys + one N-element scatter, triggered by the skin
+  displacement check. Engines wrap positions into the box only at a
+  rebuild: the candidate pre-shifts assume each position stays near its
+  row's cell, so a y/z wrap between rebuilds would move a body one box
+  away from its row's neighbors (x is handled by the minimum image).
 
 Cell size along y/z must be >= the interaction cutoff; x is not windowed
 (a row spans the box in x), so rows should be O(10-100) particles — true
@@ -66,9 +69,7 @@ def make_row_grid(domain_low, domain_high, cutoff: float, n_particles: int,
     occupancy with slack (overflow flag + host regrow on violation).
 
     `align`: round ny/nz DOWN to a multiple of this (cells grow slightly
-    past the cutoff — still correct). The Pallas row kernels need nz to be
-    a multiple of the f32 sublane quantum (8) so their dynamic z-chunk
-    offsets are provably tile-aligned."""
+    past the cutoff — still correct)."""
     low = np.asarray(domain_low, np.float64)
     high = np.asarray(domain_high, np.float64)
     ext = high - low
@@ -79,7 +80,7 @@ def make_row_grid(domain_low, domain_high, cutoff: float, n_particles: int,
         nz = max((nz // align) * align, min(nz, align))
     mean_occ = n_particles / (ny * nz)
     cap = int(np.ceil(mean_occ * capacity_slack + 8))
-    # round capacity to the VPU sublane quantum
+    # round capacity to a multiple of 8
     cap = ((cap + 7) // 8) * 8
     return RowGrid(
         origin=jnp.asarray(low, dtype),
@@ -248,7 +249,8 @@ def _pair_force_chunk(own_pos, own_valid, own_extras, blocks, metric, pair_fn,
 
 
 def _lane_pad(r: int) -> int:
-    """Padded lane extent of a length-r minor axis on TPU (multiple of 128)."""
+    """Length-r minor axis rounded up to a multiple of 128 (the memory
+    model's allowance for padded minor axes)."""
     return max(-(-r // 128) * 128, 128)
 
 
@@ -267,7 +269,7 @@ def pair_accumulate(
     optional per-particle (ny, nz, R, ...) arrays; pair_fn then receives
     (sep, r2, mask, own_field..., cand_field...) per extra field.
 
-    Work: 9 * ny * nz * R^2 dense pair evals on the VPU; the only data
+    Work: 9 * ny * nz * R^2 dense pair evals; the only data
     movement is 9 rolls of the row arrays.
 
     `box`: optional static ((Lx,Ly,Lz), (px,py,pz)) from orthorhombic_lengths
@@ -278,7 +280,7 @@ def pair_accumulate(
 
     Large grids are evaluated in y-slabs under `lax.map` so the (R x R) pair
     temporaries stay within `hbm_budget_bytes` (at 1M bodies the unchunked
-    graph wants ~19 GB of HLO temps; v5e has 16)."""
+    graph wants ~19 GB of temporaries)."""
     pos = state.pos
     valid = state.valid
     ny, nz, R = pos.shape[:3]
@@ -286,9 +288,9 @@ def pair_accumulate(
     blocks, fast = _shift_blocks(state, extra_fields, box)
     slot_ids = jax.lax.broadcasted_iota(jnp.int32, (1, 1, R), 2)
 
-    # ~30 live (R,R)-blocks per row observed in the compiled 9-shift graph;
-    # the lane (minor) dim of each block pads to a multiple of 128 on TPU
-    # (R=144 -> 256 lanes, 1.78x), which the budget must see.
+    # ~30 live (R,R)-blocks per row in the compiled 9-shift graph, minor
+    # dim counted padded to a multiple of 128 (_lane_pad); the budget bounds
+    # the temporaries of one y-chunk.
     bytes_per_row = 30 * nz * R * _lane_pad(R) * itemsize
     cy = int(hbm_budget_bytes // max(bytes_per_row, 1))
     if cy >= ny or cy < 1:
@@ -383,8 +385,8 @@ def pair_accumulate_multi(
 
     # multi-output kernels hold force AND torque (..., R, R, 3) temps per
     # shift block plus remat copies across the lax.map boundary — budget
-    # with the TPU lane padding (see pair_accumulate) and a 2x multi-output
-    # factor or the 100k-rod graph OOMs a 16 GB chip.
+    # with the padded minor dim (see pair_accumulate) and a 2x multi-output
+    # factor.
     bytes_per_row = 60 * nz * R * _lane_pad(R) * itemsize
     cy = int(hbm_budget_bytes // max(bytes_per_row, 1))
     if cy >= ny or cy < 1:
@@ -423,8 +425,8 @@ def _candidate_planes(pos: Array, box: tuple, extra_fields: tuple = ()):
     """Concatenated 9-row candidate component planes.
 
     Returns (cx, cy, cz, cand_extras), each (ny, nz, 9R): the 9 rolled
-    neighbor rows joined along one axis (ceil(9R/128) lane tiles instead of
-    9 x ceil(R/128)) with periodic y/z image shifts pre-applied per row so
+    neighbor rows joined along one wide minor axis, with periodic y/z image
+    shifts pre-applied per row so
     downstream kernels only need a one-component x minimum image."""
     ny, nz = pos.shape[:2]
     dtype = pos.dtype
@@ -461,10 +463,10 @@ def _central_force_chunk(ox, oy, oz, own_extras, cx, cy_, cz, cand_extras,
     """Fused pair force for one y-chunk: central forces f_i = sum_j w*sep.
 
     All arrays are component planes (chunk, nz, R) own / (chunk, nz, 9R)
-    candidates — no (..., 3) trailing axis, so every (R, 9R) pair block tiles
-    the VPU's (8, 128) registers without the 1.5-2.7x padding a size-3 minor
-    axis costs. The whole body is one fused elementwise+reduce kernel: the
-    only HBM traffic is reading the O(N) planes and writing the force."""
+    candidates — no (..., 3) trailing axis, so every (R, 9R) pair block is a
+    wide contiguous plane. The whole body is one fused elementwise+reduce
+    kernel: the only device-memory traffic is reading the O(N) planes and
+    writing the force."""
     DX = cx[..., None, :] - ox[..., :, None]   # (chunk, nz, R, 9R)
     if lx_px is not None:
         lx, inv_lx = lx_px
@@ -699,8 +701,8 @@ def _segment_pair_chunk(ox, oy, oz, oex, oey, oez, own_scalars,
                         out_fn, lx_px):
     """Clamped segment-segment closest points for one y-chunk, entirely on
     component planes: own midpoints/half-edges (chunk, nz, R), candidates
-    (chunk, nz, 9R), every per-pair quantity a (chunk, nz, R, 9R) plane that
-    tiles the VPU's (8, 128) registers with no size-3 minor axis. Same math
+    (chunk, nz, 9R), every per-pair quantity a (chunk, nz, R, 9R) plane
+    with no size-3 minor axis. Same math
     as geom.distance.segment_segment_closest (edge-clamped Lumelsky with the
     near-parallel best-of-4-endpoint fallback; reference algorithm
     distance/LineSegmentLineSegment.hpp:51-200), so the two engines agree to
@@ -894,11 +896,9 @@ def pair_accumulate_segments(
 def _unsort_rows_to_gid(vals_flat: Array, state: RowState, n: int) -> Array:
     """(slots, K) per-row-slot values -> (N, K) in gid order.
 
-    A direct `.at[gid].set(vals)` scatter of K-wide rows costs ~80 ns/row
-    (155 ms at 1M, K=12, slots=1.9M on v5e); building the gid->slot inverse
-    permutation with a single-int scatter and then row-GATHERING the values
-    is ~10x cheaper (scatters are the worst TPU primitive; gathers cost
-    ~4-9 ns/row regardless of width). Bodies dropped by row overflow (no
+    Instead of a `.at[gid].set(vals)` scatter of K-wide rows, build the
+    gid->slot inverse permutation with a single-int scatter and then
+    row-GATHER the values. Bodies dropped by row overflow (no
     slot) get the padded all-`n` row; the caller's overflow flag covers
     them."""
     slots = vals_flat.shape[0]
@@ -913,94 +913,36 @@ def _unsort_rows_to_gid(vals_flat: Array, state: RowState, n: int) -> Array:
     return vals_pad[jnp.minimum(slot_of, slots)]
 
 
-def neighbor_matrix_rows(
-    pos: Array,
-    search_radius: float,
-    box_lengths,
-    periodic_axes=(True, True, True),
-    origin=(0.0, 0.0, 0.0),
-    max_neighbors: int = 8,
-    capacity_slack: float = 1.9,
-    hbm_budget_bytes: float = 2.5e9,
-    grid: Optional[RowGrid] = None,
-    use_pallas: Optional[bool] = None,
-    search_radii: Optional[Array] = None,
-):
-    """NeighborMatrix built through the row layout — the fast broad phase.
+def extract_kernel_ok(grid: RowGrid, max_neighbors: int, itemsize: int = 4,
+                      periodic_axes=(True, True, True)) -> bool:
+    """True when neighbor_matrix_rows runs the Triton extraction kernel
+    (ops/pallas/row_extract.py): on the GPU, f32, all axes periodic, and
+    the static kernel envelope admits (R, K)."""
+    from mundy_tpu.ops.pallas.row_extract import row_extract_fits
 
-    Replaces neighbor/cell_list.neighbor_matrix for contact-scale cutoffs:
-    that builder gathers (chunk, 27*cap) candidate tables per particle
-    (computed-index gathers cost ~4.3 ns/row on v5e -> 9.9 s at 1M bodies);
-    this one is gather-free — build_rows (one sort + one O(N) scatter), then
-    K argmin-extraction passes over the dense rolled candidate blocks
-    (ties resolved by first-lane argmin, so equal distances extract on
-    successive passes). ~30x faster at 1M. Use the cell-list builder when
-    max_neighbors is large (cost scales linearly in K) or the box has fewer
-    than 5 cells per periodic axis.
+    return (jax.default_backend() == "gpu" and itemsize == 4
+            and all(periodic_axes) and grid.ny >= 5 and grid.nz >= 5
+            and row_extract_fits(grid.row_capacity, max_neighbors))
 
-    Pair cutoff is 2*search_radius (uniform radii) or, with `search_radii`
-    (N,) given, the per-pair sri + srj — matching neighbor_matrix's
-    search_radius_i + search_radius_j convention; `search_radius` must then
-    be max(search_radii) (it sizes the row cells). Polydisperse extraction
-    rides the same plane machinery (radii as a payload channel; XLA path
-    only — the Pallas kernel assumes a uniform cutoff).
-    Returns NeighborMatrix(idx (N,K) with N marking empty, mask, overflow).
-    """
-    from mundy_tpu.neighbor.cell_list import NeighborMatrix
 
-    n = pos.shape[0]
-    dtype = pos.dtype
+def row_extract_xla(state: RowState, box: tuple, cutoff: float,
+                    max_neighbors: int, hbm_budget_bytes: float = 2.5e9,
+                    search_radii: Optional[Array] = None):
+    """XLA K-nearest extraction on the row layout: K argmin passes over the
+    dense (R, 9R) candidate blocks (ties resolved by first-lane argmin, so
+    equal distances extract on successive passes).
+
+    Returns (ids (ny, nz, R, K) int32 gids nearest first, padded with -1,
+    count (ny, nz, R)) — the contract of the kernel's row_neighbor_extract.
+    Rows are chunked along y so ~4 live (R, 9R) blocks per row stay under
+    hbm_budget_bytes.
+    `search_radii` (N,) switches to the per-pair cutoff sri + srj."""
+    lengths, flags = box
+    ny, nz, R = state.gid.shape
+    dtype = state.pos.dtype
     itemsize = jnp.dtype(dtype).itemsize
+    n = int(search_radii.shape[0]) if search_radii is not None else None
     k_out = max_neighbors
-    cutoff = 2.0 * float(search_radius)
-    lengths = tuple(float(v) for v in box_lengths)
-    flags = tuple(bool(v) for v in periodic_axes)
-    box = (lengths, flags)
-    if grid is None:
-        low = np.asarray(origin, np.float64)
-        high = low + np.asarray(lengths, np.float64)
-        grid = make_row_grid(low, high, cutoff, n,
-                             capacity_slack=capacity_slack, dtype=dtype,
-                             align=8)
-    ny, nz, R = grid.ny, grid.nz, grid.row_capacity
-    if (flags[1] and ny < 5) or (flags[2] and nz < 5):
-        raise ValueError("neighbor_matrix_rows needs >=5 cells per periodic "
-                         "y/z axis; use neighbor_matrix")
-
-    # Wrap periodic axes into the primary cell: the row layout bins by
-    # clamped y/z cell coordinates, so an out-of-box position (unwrapped
-    # trajectories, e.g. chained filament midpoints) would land in an edge
-    # row the partner's 9-stencil never scans — silently missing pairs.
-    orig = jnp.asarray(grid.origin, dtype)
-    L = jnp.asarray(lengths, dtype)
-    wrapped = orig + jnp.mod(pos - orig, L)
-    pos = jnp.where(jnp.asarray(flags), wrapped, pos)
-
-    state = build_rows(pos, jnp.arange(n, dtype=jnp.int32), grid)
-
-    if use_pallas is None:
-        # 3.1x at 1M, K=12 (1470 -> 473 ms full broad phase, readback-forced
-        # timing): the K extraction passes stay VMEM-resident instead of K
-        # HBM round trips. The remaining costs are build_rows (~67 ms) and
-        # the slot->gid unsort scatter (~155 ms). Gated on the kernel's
-        # scoped-VMEM model — clustered configs can regrow R past the
-        # ceiling, where the XLA extraction takes over.
-        from mundy_tpu.ops.pallas.row_extract import row_extract_vmem_ok
-        use_pallas = (jax.default_backend() == "tpu" and dtype == jnp.float32
-                      and all(flags) and ny >= 5 and nz >= 5 and nz % 8 == 0
-                      and row_extract_vmem_ok(nz, R, k_out))
-    if search_radii is not None:
-        use_pallas = False  # the Mosaic kernel assumes one uniform cutoff
-    if use_pallas:
-        from mundy_tpu.ops.pallas.row_extract import row_neighbor_extract
-        ids4, cnt = row_neighbor_extract(state.pos, state.gid, lengths,
-                                         cutoff, k_out)
-        idx = _unsort_rows_to_gid(ids4.reshape(-1, k_out), state, n)
-        idx = jnp.where(idx < 0, n, idx)
-        mask = idx < n
-        overflow = state.overflow | jnp.any(
-            jnp.where(state.valid, cnt, 0) > k_out)
-        return NeighborMatrix(idx=idx, mask=mask, overflow=overflow)
     gid_f = state.gid.astype(dtype)  # gid rides the plane machinery as f32
     if search_radii is not None:
         safe = jnp.minimum(state.gid, n - 1)
@@ -1033,18 +975,16 @@ def neighbor_matrix_rows(
         hit = (r2 < pair_cut2) & (cgc[..., None, :] != ogc[..., :, None])
         count = jnp.sum(hit, axis=-1)
         r2m = jnp.where(hit, r2, jnp.inf)
-        ids, msk = [], []
+        ids = []
         for _ in range(k_out):
             amin = jnp.argmin(r2m, axis=-1).astype(jnp.int32)
             v = jnp.take_along_axis(r2m, amin[..., None], axis=-1)[..., 0]
             g = jnp.take_along_axis(cgc[..., None, :], amin[..., None],
                                     axis=-1)[..., 0]
             ok = jnp.isfinite(v) & ovc
-            ids.append(jnp.where(ok, g.astype(jnp.int32), n))
-            msk.append(ok)
+            ids.append(jnp.where(ok, g.astype(jnp.int32), -1))
             r2m = jnp.where(lanes == amin[..., None], jnp.inf, r2m)
-        return (jnp.stack(ids, axis=-1), jnp.stack(msk, axis=-1),
-                jnp.where(ovc, count, 0))
+        return jnp.stack(ids, axis=-1), jnp.where(ovc, count, 0)
 
     # ~4 live (R, 9R) blocks in the extraction graph
     bytes_per_row = 4 * nz * R * 9 * R * itemsize
@@ -1052,10 +992,9 @@ def neighbor_matrix_rows(
     if chunk_y < 1:
         # even ONE y-plane of (nz, R, 9R) blocks busts the budget — the
         # heavily-clustered regime (R integrates clustering over the full
-        # x axis). Refuse loudly: the silent fallback used to build the
-        # UNCHUNKED graph (74 GB at 1M clustered chromatin, compile-time
-        # HBM OOM). Callers should use the cell-list builder here (3D
-        # cells bound occupancy locally; see rows_extract_feasible).
+        # x axis). Refuse loudly: the unchunked graph would not fit device
+        # memory. Callers should use the cell-list builder here (3D cells
+        # bound occupancy locally; see rows_extract_feasible).
         raise ValueError(
             f"neighbor_matrix_rows: one y-plane of the extraction graph "
             f"needs {bytes_per_row / 1e9:.1f} GB (> budget "
@@ -1063,39 +1002,105 @@ def neighbor_matrix_rows(
             "distribution is too clustered for the row layout; use the "
             "cell-list builder (neighbor_matrix)")
     if chunk_y >= ny:
-        ids, msk, count = extract(ox, oy, oz, state.gid, state.valid,
-                                  cx, cy_, cz, cgid, sr_rows, csr)
+        return extract(ox, oy, oz, state.gid, state.valid,
+                       cx, cy_, cz, cgid, sr_rows, csr)
+    n_chunks = -(-ny // chunk_y)
+    ny_pad = n_chunks * chunk_y
+
+    def pad(a, fill=0):
+        cfg = [(0, ny_pad - ny)] + [(0, 0)] * (a.ndim - 1)
+        return jnp.pad(a, cfg, constant_values=fill)
+
+    planes = [pad(a) for a in (ox, oy, oz, cx, cy_, cz, cgid)]
+    gid_p, valid_p = pad(state.gid), pad(state.valid, False)
+    sr_p = pad(sr_rows) if sr_rows is not None else None
+    csr_p = pad(csr) if csr is not None else None
+
+    def chunk(c):
+        y0 = c * chunk_y
+        sl = lambda a: jax.lax.dynamic_slice_in_dim(a, y0, chunk_y, 0)  # noqa: E731
+        oxc, oyc, ozc, cxc, cyc, czc, cgc = (sl(a) for a in planes)
+        return extract(oxc, oyc, ozc, sl(gid_p), sl(valid_p),
+                       cxc, cyc, czc, cgc,
+                       sl(sr_p) if sr_p is not None else None,
+                       sl(csr_p) if csr_p is not None else None)
+
+    ids, count = jax.lax.map(chunk, jnp.arange(n_chunks, dtype=jnp.int32))
+    return (ids.reshape((ny_pad, nz, R, k_out))[:ny],
+            count.reshape((ny_pad, nz, R))[:ny])
+
+
+def neighbor_matrix_rows(
+    pos: Array,
+    search_radius: float,
+    box_lengths,
+    periodic_axes=(True, True, True),
+    origin=(0.0, 0.0, 0.0),
+    max_neighbors: int = 8,
+    capacity_slack: float = 1.9,
+    hbm_budget_bytes: float = 2.5e9,
+    grid: Optional[RowGrid] = None,
+    search_radii: Optional[Array] = None,
+):
+    """NeighborMatrix built through the row layout — the fast broad phase.
+
+    Replaces neighbor/cell_list.neighbor_matrix for contact-scale cutoffs:
+    that builder gathers (chunk, 27*cap) candidate tables per particle;
+    this one sorts once (build_rows) and extracts the K nearest from the
+    dense 9-row candidate blocks — with the Triton kernel on the GPU when
+    extract_kernel_ok, else with row_extract_xla (cost linear in K). Use
+    the cell-list builder when max_neighbors is large or the box has fewer
+    than 5 cells per periodic axis.
+
+    Pair cutoff is 2*search_radius (uniform radii) or, with `search_radii`
+    (N,) given, the per-pair sri + srj — matching neighbor_matrix's
+    search_radius_i + search_radius_j convention; `search_radius` must then
+    be max(search_radii) (it sizes the row cells). Polydisperse extraction
+    rides the same plane machinery (radii as a payload channel; XLA path
+    only — the kernel assumes a uniform cutoff).
+    Returns NeighborMatrix(idx (N,K) with N marking empty, mask, overflow).
+    """
+    from mundy_tpu.neighbor.cell_list import NeighborMatrix
+
+    n = pos.shape[0]
+    dtype = pos.dtype
+    k_out = max_neighbors
+    cutoff = 2.0 * float(search_radius)
+    lengths = tuple(float(v) for v in box_lengths)
+    flags = tuple(bool(v) for v in periodic_axes)
+    if grid is None:
+        low = np.asarray(origin, np.float64)
+        high = low + np.asarray(lengths, np.float64)
+        grid = make_row_grid(low, high, cutoff, n,
+                             capacity_slack=capacity_slack, dtype=dtype,
+                             align=8)
+    ny, nz = grid.ny, grid.nz
+    if (flags[1] and ny < 5) or (flags[2] and nz < 5):
+        raise ValueError("neighbor_matrix_rows needs >=5 cells per periodic "
+                         "y/z axis; use neighbor_matrix")
+
+    # Wrap periodic axes into the primary cell: the row layout bins by
+    # clamped y/z cell coordinates, so an out-of-box position (unwrapped
+    # trajectories, e.g. chained filament midpoints) would land in an edge
+    # row the partner's 9-stencil never scans — silently missing pairs.
+    orig = jnp.asarray(grid.origin, dtype)
+    L = jnp.asarray(lengths, dtype)
+    wrapped = orig + jnp.mod(pos - orig, L)
+    pos = jnp.where(jnp.asarray(flags), wrapped, pos)
+
+    state = build_rows(pos, jnp.arange(n, dtype=jnp.int32), grid)
+    if search_radii is None and extract_kernel_ok(
+            grid, k_out, jnp.dtype(dtype).itemsize, flags):
+        from mundy_tpu.ops.pallas.row_extract import row_neighbor_extract
+
+        ids, count = row_neighbor_extract(state.pos, state.gid, state.valid,
+                                          lengths, cutoff, k_out)
     else:
-        n_chunks = -(-ny // chunk_y)
-        ny_pad = n_chunks * chunk_y
-
-        def pad(a, fill=0):
-            cfg = [(0, ny_pad - ny)] + [(0, 0)] * (a.ndim - 1)
-            return jnp.pad(a, cfg, constant_values=fill)
-
-        planes = [pad(a) for a in
-                  (ox, oy, oz, gid_f, cx, cy_, cz, cgid)]
-        gid_p, valid_p = pad(state.gid), pad(state.valid, False)
-        sr_p = pad(sr_rows) if sr_rows is not None else None
-        csr_p = pad(csr) if csr is not None else None
-
-        def chunk(c):
-            y0 = c * chunk_y
-            sl = lambda a: jax.lax.dynamic_slice_in_dim(a, y0, chunk_y, 0)  # noqa: E731
-            oxc, oyc, ozc, _gf, cxc, cyc, czc, cgc = (sl(a) for a in planes)
-            return extract(oxc, oyc, ozc, sl(gid_p), sl(valid_p),
-                           cxc, cyc, czc, cgc,
-                           sl(sr_p) if sr_p is not None else None,
-                           sl(csr_p) if csr_p is not None else None)
-
-        ids, msk, count = jax.lax.map(chunk,
-                                      jnp.arange(n_chunks, dtype=jnp.int32))
-        ids = ids.reshape((ny_pad, nz, R, k_out))[:ny]
-        msk = msk.reshape((ny_pad, nz, R, k_out))[:ny]
-        count = count.reshape((ny_pad, nz, R))[:ny]
-
+        ids, count = row_extract_xla(state, (lengths, flags), cutoff, k_out,
+                                     hbm_budget_bytes, search_radii)
     # row slots back to flat gid order (inverse permutation + row gather)
     idx = _unsort_rows_to_gid(ids.reshape(-1, k_out), state, n)
+    idx = jnp.where(idx < 0, n, idx)
     mask = idx < n
     overflow = state.overflow | jnp.any(count > k_out)
     return NeighborMatrix(idx=idx, mask=mask, overflow=overflow)
@@ -1105,18 +1110,14 @@ def rows_extract_feasible(grid: RowGrid, max_neighbors: int,
                           itemsize: int = 4,
                           hbm_budget_bytes: float = 2.5e9) -> bool:
     """True when neighbor_matrix_rows can extract at this grid's shape —
-    either the Pallas kernel's VMEM envelope admits it or the XLA path can
-    chunk at least one y-plane under the HBM budget. False means the
+    either the extraction kernel runs (extract_kernel_ok) or the XLA path
+    can chunk at least one y-plane under the memory budget. False means the
     distribution is too clustered for the row layout (R integrates
     clustering over the full x axis); callers should use the cell-list
     builder, whose 3D cells bound occupancy locally."""
-    from mundy_tpu.ops.pallas.row_extract import row_extract_vmem_ok
-
-    nz, R = grid.nz, grid.row_capacity
-    if (jax.default_backend() == "tpu" and itemsize == 4 and nz % 8 == 0
-            and grid.ny >= 5 and nz >= 5
-            and row_extract_vmem_ok(nz, R, max_neighbors)):
+    if extract_kernel_ok(grid, max_neighbors, itemsize):
         return True
+    nz, R = grid.nz, grid.row_capacity
     return 4 * nz * R * 9 * R * itemsize <= hbm_budget_bytes
 
 

@@ -1,1 +1,2 @@
-"""Pallas TPU kernels for the hot compute paths."""
+"""Hot-path primitives: blocked segment sums, dense spectral gridding, and
+the GPU kernels under ops/pallas."""

@@ -1,41 +1,27 @@
-"""Pallas TPU kernel: K-nearest neighbor extraction on the row layout.
+"""Pallas kernel (Triton route): K-nearest neighbor extraction on the row layout.
 
-The XLA row broad phase (neighbor/rows.neighbor_matrix_rows) runs K
-argmin-extraction passes, each re-materializing the (R, 9R) candidate
-blocks through HBM plus take_along gathers — ~1.0 s at 1M bodies, the
-dominant cost of an LCP rebuild. This kernel performs the whole extraction
-in VMEM: one HBM read of the candidate planes, K select-reduce passes over
-the resident pair blocks, one write of (ids, count).
+The XLA row broad phase (neighbor/rows.neighbor_matrix_rows) runs K argmin
+passes over the (R, 9R) candidate distance block of every (y, z) row, and
+each pass reads and rewrites the whole block through device memory. This
+kernel keeps the block on chip: one program per (y, z, own-slot tile) loads
+its 9 candidate rows once (periodic y/z wrap computed here, x by minimum
+image), builds the (RB, C) key block, runs the K select passes on it, and
+writes only (ids, count). Programs share nothing and use no atomics, so the
+output is deterministic.
 
 Tie-breaking without argmin: squared distances are bitcast to int32 (order
-preserving for non-negative floats), the low ceil(log2(9R)) mantissa bits
-are replaced by the candidate lane index (unique per lane), and the minimum
-is taken over ints. Equality against the min then selects EXACTLY one lane,
-and the gid extraction is a select-sum (no gathers — Mosaic has none). The
-in-cutoff test uses the unmodified r2, so the mantissa clobber only affects
-ordering among near-equal distances, never set membership.
+preserving for non-negative floats), the low log2(C) mantissa bits are
+replaced by the candidate lane index (unique per lane), and the minimum is
+taken over ints. The selected lane is then the low bits of the minimum, and
+pass k takes the smallest key above pass k-1's. The in-cutoff test uses the
+unmodified r2, so the lane field only reorders near-equal distances, never
+changes the extracted neighbor SET while count <= K. Lanes follow the XLA
+path's (dy, dz)-major order, s * R + slot.
 
-Output ids are laid out (ny, nz, K, R) — K on the sublane axis — so the
-VMEM output block stays ~1 MB instead of padding K=8..16 lanes to 128; the
-caller transposes to the (..., K) neighbor-matrix convention in XLA.
-
-VMEM + compile sizing (hard-won):
-- The z-chunk cz must be a MULTIPLE OF 8: Mosaic requires dynamic sublane
-  offsets (pl.ds(c*cz, cz) on the scratch planes) to be provably
-  8-aligned; cz=1..7 fails to lower ("cannot statically prove that index
-  in dimension 0 is a multiple of 8").
-- Large R is handled by unrolled own-slot chunks of rz rows. The allocator
-  reuses stack across these chunks at cz=8 (a 7-chunk R=152 kernel whose
-  naive per-chunk sum was 44 MB ran fine), but every chunk unrolls K more
-  extraction passes and Mosaic compile time scales with program size
-  (27 min at 14 chunks x K=48 vs 50 s at 7 x K=40) — so the chunk count is
-  capped via _MAX_PASSES and bigger shapes take the XLA path.
-- The body minimizes simultaneously-live (cz, rz, 9R) blocks: sequential
-  per-component r2 accumulation (peak: diff + r2), hit mask fused into the
-  key select, count derived from the finished key. (A straight-line
-  dx/dy/dz/r2/hit/key body measured ~6 live blocks — 32.56 MB at full
-  R=136 — this one ~4.)
-Beyond the envelope (row_extract_vmem_ok) callers use the XLA path.
+Shapes: C = 9R rounded up to a power of two (pad lanes masked), RB own slots
+per program (power of two, RB * C <= _BLOCK_ELEMS), K padded to a power of
+two in the output tile. `row_extract_fits` is the static envelope check;
+callers take the XLA extraction outside it.
 
 ref: the coarse_search + linker generation pipeline this replaces,
 `mundy/mesh/src/mundy_mesh/GenNeighborLinkers.hpp:510-663`.
@@ -49,237 +35,139 @@ import jax
 import jax.numpy as jnp
 from jax import Array
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-_INT_INF = 0x7F7FFFFF  # bits of f32 max — beyond any real r2 (python int:
-# jnp scalars would be captured as traced constants, which pallas rejects)
-
-
-def _extract_kernel(lx, ly, lz, cut2, y_thresh, K, cz, r_starts, rz,
-                    lane_mask, ny, nz, R,
-                    pxm, pym, pzm, gm,   # y-1 plane (1, nz, R) + gid
-                    pxc, pyc, pzc, gc,   # y   plane
-                    pxp, pyp, pzp, gp,   # y+1 plane
-                    ids_ref,             # out (1, nz, K, R) int32 gids (pad -1)
-                    cnt_ref,             # out (1, nz, R) int32 hit count
-                    scx, scy, scz, scg):  # VMEM scratch (nz, 9R) f32/f32/f32/i32
-    i = pl.program_id(0)
-    f32 = jnp.float32
-
-    zrow = jax.lax.broadcasted_iota(jnp.int32, (nz, R), 0)
-    zsh_p = jnp.where(zrow == nz - 1, f32(lz), f32(0.0))
-    zsh_m = jnp.where(zrow == 0, f32(-lz), f32(0.0))
-    ysh_m = jnp.where(i == 0, f32(-ly), f32(0.0))       # y-1 wraps at plane 0
-    ysh_p = jnp.where(i == ny - 1, f32(ly), f32(0.0))   # y+1 wraps at plane ny-1
-
-    # concatenated 9-offset candidate planes: (dy, dz) major order
-    planes = ((pxm, pym, pzm, gm, ysh_m), (pxc, pyc, pzc, gc, f32(0.0)),
-              (pxp, pyp, pzp, gp, ysh_p))
-    seg = 0
-    for px_r, py_r, pz_r, g_r, ysh in planes:
-        x0, y0, z0, g0 = px_r[0], py_r[0] + ysh, pz_r[0], g_r[0]
-        for dz in (-1, 0, 1):
-            sl = slice(seg * R, (seg + 1) * R)
-            if dz == 0:
-                scx[:, sl] = x0
-                scy[:, sl] = y0
-                scz[:, sl] = z0
-                scg[:, sl] = g0
-            else:
-                sh = (-dz) % nz
-                scx[:, sl] = pltpu.roll(x0, sh, axis=0)
-                scy[:, sl] = pltpu.roll(y0, sh, axis=0)
-                scz[:, sl] = pltpu.roll(z0, sh, axis=0) + (zsh_p if dz == 1 else zsh_m)
-                scg[:, sl] = pltpu.roll(g0, sh, axis=0)
-            seg += 1
-
-    # loop-invariant (1, rz, 9R) iota blocks for the packed-key lane ids
-    # and the self-pair test (own slot r0+s sits at candidate lane 4R+r0+s)
-    lanes = jax.lax.broadcasted_iota(jnp.int32, (1, rz, 9 * R), 2)
-    slot_id = jax.lax.broadcasted_iota(jnp.int32, (1, rz, 9 * R), 1)
-    inv_lx = 1.0 / lx
-
-    def zbody(c, _):
-        zs = pl.ds(c * cz, cz)
-        # candidate sentinel filter; own sentinels need none (they sit 1e6
-        # boxes from every real candidate, and sentinel-sentinel pairs have
-        # an invalid candidate side)
-        cxp = scx[zs][:, None, :]                        # (cz, 1, 9R)
-        cyp = scy[zs][:, None, :]
-        czp = scz[zs][:, None, :]
-        cv = cyp > y_thresh
-        cg1 = scg[zs][:, None, :] + 1
-        # own-slot chunks of rz: bounds the (cz, rz, 9R) working set; the
-        # final chunk may overlap the previous one (recomputed slots write
-        # identical values, so the overlap is idempotent)
-        for r0 in r_starts:
-            rs = slice(r0, r0 + rz)
-            # sequential per-component accumulation: peak two live
-            # (cz, rz, 9R) f32 blocks (t, r2) instead of dx/dy/dz/r2
-            t = cxp - pxc[0, zs, rs][:, :, None]
-            t = t - lx * jnp.round(t * inv_lx)
-            r2 = t * t
-            t = cyp - pyc[0, zs, rs][:, :, None]
-            r2 = r2 + t * t
-            t = czp - pzc[0, zs, rs][:, :, None]
-            r2 = r2 + t * t
-            # int-packed keys: low lane_bits = lane id — unique tie-break.
-            # The in-cutoff test uses the UNMODIFIED r2, so the lane field
-            # only perturbs distance order among near-equal candidates,
-            # never the extracted neighbor SET.
-            bits = jax.lax.bitcast_convert_type(r2, jnp.int32)
-            key = jnp.where(
-                (r2 < cut2) & (lanes != (4 * R + r0) + slot_id) & cv,
-                (bits & lane_mask) | lanes, _INT_INF)
-            cnt_ref[0, zs, rs] = jnp.sum((key < _INT_INF).astype(jnp.int32),
-                                         axis=2)
-            for k in range(K):
-                m = jnp.min(key, axis=2)
-                sel = key == m[:, :, None]
-                found = m < _INT_INF
-                gid_k = jnp.sum(jnp.where(sel, cg1, 0), axis=2) - 1
-                ids_ref[0, zs, k, rs] = jnp.where(found, gid_k, -1)
-                key = jnp.where(sel, _INT_INF, key)
-        return ()
-
-    jax.lax.fori_loop(0, nz // cz, zbody, (), unroll=False)
+_INT_INF = 0x7F7FFFFF  # bits of f32 max: above every in-cutoff key
+_BLOCK_ELEMS = 8192    # (RB, C) key block size per program
+_MAX_LANES = 4096      # C cap: R <= 455
+_MAX_K = 64            # unrolled select passes
+_NUM_WARPS = 4
 
 
-# scoped-VMEM budget model for one grid step (bytes). Mosaic's stack limit
-# is 16 MB; the model splits it into FIXED costs (output blocks, candidate
-# scratch, double-buffered input planes, wrap-shift planes) and per-row-
-# chunk WORKING costs (~4 live (cz, rz, 9R) 4-byte blocks through the
-# distance/key/extraction phases + 2 loop-invariant (1, rz, 9R) iotas).
-# _VMEM_LIMIT absorbs the model's measured ~8% underestimate of the real
-# allocation (calibration point: nz=64, R=192, K=58, cz=8, rz=40 modeled
-# 15.4 MB, actual 16.59 MB — an on-TPU OOM by 604K when the old model
-# ignored fixed costs).
-_VMEM_LIMIT = 14e6
-_MAX_PASSES = 320   # compile-size cap: unrolled chunks x K extraction passes
+def _pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
 
 
-def _fixed_bytes(nz: int, R: int, K: int) -> int:
-    ids_out = nz * K * R * 4
-    cnt_out = nz * R * 4
-    scratch = 4 * nz * 9 * R * 4          # scx/scy/scz/scg
-    inputs = 2 * 12 * nz * R * 4          # 12 planes, double-buffered
-    zshift = 3 * nz * R * 4               # zrow iota + zsh_p/zsh_m
-    return ids_out + cnt_out + scratch + inputs + zshift
-
-
-def _plan(nz: int, R: int, K: int):
-    """Choose (cz, rz, r_starts) for the kernel, or None if the shape is
-    out of the kernel's envelope (callers then take the XLA path).
-
-    cz is a MULTIPLE OF 8 (Mosaic requires dynamic sublane offsets to be
-    provably 8-aligned; cz < 8 fails to lower). Row chunks bound the
-    working set at large R; their count is capped through _MAX_PASSES
-    because every chunk unrolls K more extraction passes and Mosaic compile
-    time scales with program size (measured: 27 min at 14 chunks x K=48 vs
-    50 s at 7 chunks x K=40)."""
-    if nz % 8 != 0:
+def _plan(R: int, K: int):
+    """(C, RB, NB, KP) for the kernel, or None outside its envelope."""
+    C = _pow2(9 * R)
+    if C > _MAX_LANES or K > _MAX_K or K < 1:
         return None
-    budget = _VMEM_LIMIT - _fixed_bytes(nz, R, K)
-    # per-rz-unit working bytes at z-chunk c: 4 live (c, rz, 9R) blocks
-    # + 2 (1, rz, 9R) iota blocks, all 4-byte
-    unit = lambda c: (4 * c + 2) * 9 * R * 4
-    cz, rz = 8, R
-    for c in range(nz, 7, -8):
-        if nz % c == 0 and unit(c) * R <= budget:
-            cz = c
-            break
-    else:
-        rz = max((int(budget) // unit(8) // 8) * 8, 8)
-        rz = min(rz, R)
-        if unit(8) * rz > budget:
-            return None  # even one 8-row chunk exceeds the stack
-    r_starts = list(range(0, R - rz + 1, rz))
-    if r_starts[-1] + rz < R:
-        r_starts.append(R - rz)  # overlap is idempotent
-    if len(r_starts) * K > _MAX_PASSES:
-        return None
-    return cz, rz, tuple(r_starts)
+    RB = max(1, min(32, _BLOCK_ELEMS // C, _pow2(R)))
+    return C, RB, -(-R // RB), _pow2(K)
 
 
-def row_extract_vmem_ok(nz: int, R: int, K: int) -> bool:
-    """True when the kernel's plan fits the VMEM/compile-size envelope (the
-    caller should take the XLA extraction path otherwise)."""
-    return _plan(nz, R, K) is not None
+def row_extract_fits(R: int, K: int) -> bool:
+    """True when the kernel's static envelope admits row capacity R and K
+    neighbors (otherwise callers take the XLA extraction)."""
+    return _plan(R, K) is not None
+
+
+def _extract_kernel(px_ref, py_ref, pz_ref, g_ref, v_ref, ids_ref, cnt_ref,
+                    *, box, cut2, ny, nz, R, RB, C, K, KP):
+    f32, i32 = jnp.float32, jnp.int32
+    lx, ly, lz = box
+    iy, iz, ib = pl.program_id(0), pl.program_id(1), pl.program_id(2)
+
+    def cand(lane):
+        """Flat slot index, liveness and y/z image shifts of lane ids."""
+        s = jax.lax.div(lane, i32(R))
+        slot = lane - s * R
+        sy = jax.lax.div(s, i32(3))
+        yy = iy + sy - 1
+        zz = iz + (s - 3 * sy) - 1
+        ysh = jnp.where(yy < 0, f32(-ly), jnp.where(yy >= ny, f32(ly), f32(0)))
+        zsh = jnp.where(zz < 0, f32(-lz), jnp.where(zz >= nz, f32(lz), f32(0)))
+        yy = jnp.where(yy < 0, yy + ny, jnp.where(yy >= ny, yy - ny, yy))
+        zz = jnp.where(zz < 0, zz + nz, jnp.where(zz >= nz, zz - nz, zz))
+        live = s < 9
+        flat = jnp.where(live, (yy * nz + zz) * R + slot, 0)
+        return flat, live, ysh, zsh
+
+    lanes = jax.lax.broadcasted_iota(i32, (C,), 0)
+    cflat, clive, ysh, zsh = cand(lanes)
+    cx = px_ref[cflat]
+    cy = py_ref[cflat] + ysh
+    cz = pz_ref[cflat] + zsh
+    cg = g_ref[cflat]
+
+    r = ib * RB + jax.lax.broadcasted_iota(i32, (RB,), 0)
+    oflat = (iy * nz + iz) * R + jnp.minimum(r, R - 1)
+    ox, oy, oz = px_ref[oflat], py_ref[oflat], pz_ref[oflat]
+    og = g_ref[oflat]
+    ov = (v_ref[oflat] != 0) & (r < R)
+
+    t = cx[None, :] - ox[:, None]
+    t = t - f32(lx) * jnp.floor(t * f32(1.0 / lx) + f32(0.5))
+    r2 = t * t
+    t = cy[None, :] - oy[:, None]
+    r2 = r2 + t * t
+    t = cz[None, :] - oz[:, None]
+    r2 = r2 + t * t
+    hit = ((r2 < f32(cut2)) & (cg[None, :] != og[:, None])
+           & clive[None, :] & ov[:, None])
+    lane_mask = -C  # ~(C - 1): clears the low log2(C) bits
+    bits = jax.lax.bitcast_convert_type(r2, i32)
+    key = jnp.where(hit, (bits & lane_mask) | lanes[None, :], _INT_INF)
+    cnt_ref[...] = jnp.sum(hit.astype(i32), axis=1)
+
+    kcol = jax.lax.broadcasted_iota(i32, (RB, KP), 1)
+    ids = jnp.full((RB, KP), -1, i32)
+    prev = jnp.full((RB,), -1, i32)
+    for k in range(K):
+        m = jnp.min(jnp.where(key > prev[:, None], key, _INT_INF), axis=1)
+        kflat, _, _, _ = cand(m & (C - 1))
+        gk = jnp.where(m < _INT_INF, g_ref[kflat], -1)
+        ids = jnp.where(kcol == k, gk[:, None], ids)
+        prev = m
+    ids_ref[...] = ids
 
 
 def row_neighbor_extract(
-    pos: Array,   # (ny, nz, R, 3) f32 from build_rows (sentinel slots)
-    gid: Array,   # (ny, nz, R) int32
-    box,          # (3,) lengths
+    pos: Array,    # (ny, nz, R, 3) f32 from build_rows (sentinel slots)
+    gid: Array,    # (ny, nz, R) int32
+    valid: Array,  # (ny, nz, R) bool
+    box,           # (3,) periodic lengths
     cutoff: float,
     max_neighbors: int,
     interpret: bool = False,
 ) -> tuple[Array, Array]:
     """K nearest in-cutoff neighbor gids per row slot, plus hit counts.
 
-    Returns (ids (ny, nz, R, K) int32 gids with -1 padding sorted by
-    distance, count (ny, nz, R) int32 — count > K means truncation and the
-    caller must flag overflow). Requires ny, nz >= 5 and nz % 8 == 0
-    (make_row_grid(..., align=8)); raises ValueError when the (R, K) shape
-    exceeds the VMEM model (check row_extract_vmem_ok first).
-    """
+    Returns (ids (ny, nz, R, K) int32 gids sorted by distance with -1
+    padding, count (ny, nz, R) int32; count > K means truncation and the
+    caller must flag overflow). All three axes periodic; ny, nz >= 5.
+    Raises ValueError outside the kernel envelope (row_extract_fits)."""
     ny, nz, R, _ = pos.shape
     K = max_neighbors
     if ny < 5 or nz < 5:
         raise ValueError("row_neighbor_extract needs ny, nz >= 5")
-    if nz % 8 != 0:
-        raise ValueError("row_neighbor_extract needs nz % 8 == 0: build the "
-                         "grid with make_row_grid(..., align=8)")
-    plan = _plan(nz, R, K)
+    plan = _plan(R, K)
     if plan is None:
-        raise ValueError(
-            f"row_neighbor_extract: (R={R}, K={K}) exceeds the scoped-VMEM/"
-            "compile-size envelope; use the XLA path (use_pallas=False)")
-    cz, rz, r_starts = plan
-
-    px = pos[..., 0].astype(jnp.float32)
-    py = pos[..., 1].astype(jnp.float32)
-    pz = pos[..., 2].astype(jnp.float32)
-    g = gid.astype(jnp.int32)
-
-    lane_bits = max(10, (9 * R - 1).bit_length())
+        raise ValueError(f"row_neighbor_extract: (R={R}, K={K}) is outside "
+                         "the kernel envelope; use the XLA extraction")
+    C, RB, NB, KP = plan
     kern = functools.partial(
-        _extract_kernel,
-        float(box[0]), float(box[1]), float(box[2]),
-        float(cutoff) ** 2, float(-2.0 * box[1] - 4.0),
-        K, cz, r_starts, rz, ~((1 << lane_bits) - 1), ny, nz, R,
-    )
-
-    def spec(off):
-        return pl.BlockSpec((1, nz, R), lambda i, o=off: ((i + o) % ny, 0, 0),
-                            memory_space=pltpu.VMEM)
-
-    in_specs = []
-    inputs = []
-    for off in (-1, 0, 1):
-        in_specs += [spec(off)] * 4
-        inputs += [px, py, pz, g]
-
+        _extract_kernel, box=tuple(float(v) for v in box),
+        cut2=float(cutoff) ** 2, ny=ny, nz=nz, R=R, RB=RB, C=C, K=K, KP=KP)
+    flat = lambda a, dt: a.reshape(-1).astype(dt)  # noqa: E731
     ids, cnt = pl.pallas_call(
         kern,
-        grid=(ny,),
-        in_specs=in_specs,
+        grid=(ny, nz, NB),
         out_specs=(
-            pl.BlockSpec((1, nz, K, R), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, nz, R), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((None, None, RB, KP), lambda i, j, b: (i, j, b, 0)),
+            pl.BlockSpec((None, None, RB), lambda i, j, b: (i, j, b)),
         ),
         out_shape=(
-            jax.ShapeDtypeStruct((ny, nz, K, R), jnp.int32),
-            jax.ShapeDtypeStruct((ny, nz, R), jnp.int32),
+            jax.ShapeDtypeStruct((ny, nz, NB * RB, KP), jnp.int32),
+            jax.ShapeDtypeStruct((ny, nz, NB * RB), jnp.int32),
         ),
-        scratch_shapes=[
-            pltpu.VMEM((nz, 9 * R), jnp.float32),
-            pltpu.VMEM((nz, 9 * R), jnp.float32),
-            pltpu.VMEM((nz, 9 * R), jnp.float32),
-            pltpu.VMEM((nz, 9 * R), jnp.int32),
-        ],
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS,
+                                             num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )(*inputs)
-    return jnp.transpose(ids, (0, 1, 3, 2)), cnt
+        name="row_neighbor_extract",
+    )(flat(pos[..., 0], jnp.float32), flat(pos[..., 1], jnp.float32),
+      flat(pos[..., 2], jnp.float32), flat(gid, jnp.int32),
+      flat(valid, jnp.int32))
+    return ids[:, :, :R, :K], cnt[:, :, :R]

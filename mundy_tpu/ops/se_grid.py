@@ -1,32 +1,17 @@
-"""Pallas gridding kernels for the spectral Ewald wave sum (spread/interp).
+"""Dense gridding for the spectral Ewald wave sum (spread/interp), pure XLA.
 
-Scatter-add spreading costs ~8.6 ns/element on v5e: N * P^3 elements is
-327 ms at N=1e4 (P=12) and unusable beyond — the irregular-access wall, same
-as every other scatter in this codebase. This kernel removes it with the row
-decomposition:
-
-- particles are binned into (ny, nz) = (G/m, G/m) row columns (cell edge
-  m*h, full x extent), the same build_rows sort used by the force engine;
-- each program owns one row and a VMEM slab covering the row's grid
-  footprint: (G + XPAD, W, W*3) with W = m + P — every particle in the row
-  spreads entirely inside its slab, so programs never race;
-- per slot the window is a rank-1 patch wx (P) x [wy (P) x wzf (W*3)]:
-  wx/wy/wz are PRECOMPUTED in XLA (pure elementwise math), the kernel only
-  does two outer products and a read-modify-write of the (P, P, W*3) slab
-  region at dynamic (x, y) offsets (pl.ds) — z is evaluated at full slab
-  width so only two axes need dynamic placement;
-- slabs overlap between adjacent rows by P cells; the combine back to the
-  (G, G, G, 3) grid is W shifted dense adds per axis in XLA (strided
-  residue-class interleave), no scatters anywhere.
-
-Interpolation is the transpose: XLA extracts each row's slab from the grid
-(same shifted dense ops), the kernel dots the slab patch with the window per
-slot.
+A plain scatter-add spread (and gather interpolation) touches N * P^3 grid
+points at computed indices. This module instead bins particles by one sort
+into (y, z) row columns (SEGridRows, cell edge m grid points, full x extent)
+or 3D tiles (SEGridTiles), evaluates the separable window weights dense
+along each slab axis, and spreads each row/tile with one matrix contraction
+onto a private slab; slabs fold back into the (G, G, G, 3) grid by shifted
+dense adds (periodic wrap included). Interpolation is the transposed
+contraction. No scatter of grid points anywhere.
 """
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple
 
@@ -34,18 +19,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import Array
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 XPAD = 16  # slab x padding (P <= 12 wraps fit; multiple of 8)
-
-
-def _r_chunk(R: int, target: int = 2048) -> int:
-    """Largest divisor of R that is <= target (R is a multiple of 8)."""
-    rc = min(R, target)
-    while R % rc != 0:
-        rc -= 8
-    return max(rc, 8)
 
 
 class SEGridRows(NamedTuple):
@@ -91,7 +66,7 @@ def make_se_grid_rows(G: int, P: int, box: float, xi: float, eta: float,
     and the slot capacity.
 
     Capacity = Poisson-max estimate (mean + 6 sigma) x slack: every gridding
-    term (window exps, outer products, the MXU contraction K dim) scales
+    term (window exps, outer products, the contraction K dim) scales
     with R, so slack is paid on every wave apply; the overflow flag + host
     regrow catches densification."""
     m = min_m
@@ -131,140 +106,15 @@ def _bin_rows(geom: SEGridRows, pos: Array):
     return perm.reshape(nyz * nyz, R), overflow  # particle id per slot (n = empty)
 
 
-def _windows(geom: SEGridRows, pos: Array, perm: Array, dtype):
-    """XLA precompute of per-slot window pieces and patch offsets.
-
-    Returns gx0, gy0 (n_rows, R) int32 patch offsets inside the slab, and
-    wx (.., P), wy (.., P), wz (.., W) window weights (zero for empty slots).
-    """
-    G, m, P, R = geom.G, geom.m, geom.P, geom.R
-    W = m + P
-    nyz = G // m
-    n = pos.shape[0]
-    h = geom.box / G
-    valid = perm < n
-    p = pos[jnp.minimum(perm, n - 1)]  # (n_rows, R, 3)
-    u = p / h
-    base = jnp.floor(u).astype(jnp.int32)
-    frac = (u - base).astype(dtype)
-    offs_p = jnp.arange(P, dtype=dtype) - (P // 2 - 1)
-
-    def w1(fr):
-        return window_weights_1d(geom, offs_p[None, None, :] - fr[..., None],
-                                 dtype)
-
-    wx = jnp.where(valid[..., None], w1(frac[..., 0]), 0.0)
-    wy = w1(frac[..., 1])
-    # z evaluated on the full slab width W at the particle's true offset
-    row_ids = jnp.arange(nyz * nyz, dtype=jnp.int32)
-    iy = (row_ids // nyz)[:, None]
-    iz = (row_ids % nyz)[:, None]
-    # slab origins: x at -XPAD/2 wrap pad; y/z at m*iy - P/2
-    offs_w = jnp.arange(W, dtype=dtype)
-    zslab = (iz * m - P // 2).astype(dtype)[..., None] + offs_w[None, None, :]
-    wz = window_weights_1d(geom, zslab - u[..., 2][..., None], dtype)
-    # dynamic patch offsets inside the slab
-    gx0 = base[..., 0] - (P // 2 - 1) + XPAD // 2
-    gy0 = base[..., 1] - (P // 2 - 1) - (iy * m - P // 2)
-    gx0 = jnp.clip(gx0, 0, G + XPAD - P)
-    gy0 = jnp.clip(gy0, 0, W - P)
-    return (gx0.astype(jnp.int32), gy0.astype(jnp.int32),
-            wx.astype(dtype), wy.astype(dtype), wz.astype(dtype))
-
-
-def _spread_kernel(gx_ref, gy_ref, wx_ref, wy_ref, wzf_ref, slab_ref, *, R, P):
-    # R is chunked over the minor grid axis; the slab block revisits across
-    # chunks (same index map), so zero it only on the first chunk.
-    @pl.when(pl.program_id(1) == 0)
-    def _():
-        slab_ref[:] = jnp.zeros(slab_ref.shape, slab_ref.dtype)
-
-    def body(i, _):
-        sx = gx_ref[0, 0, i]
-        sy = gy_ref[0, 0, i]
-        wx = wx_ref[0, pl.ds(i, 1), :]  # (1, P)
-        wy = wy_ref[0, pl.ds(i, 1), :]  # (1, P)
-        wzf = wzf_ref[0, pl.ds(i, 1), :]  # (1, W*3)
-        patch2d = wy.reshape(P, 1) * wzf  # (P, W*3)
-        # unrolled x-offset loop: P rank-1 updates of 2D planes (Mosaic
-        # rejects the fused 3D outer-product/add form: "unsupported shape
-        # cast")
-        for a in range(P):
-            cur = slab_ref[0, sx + a, pl.ds(sy, P), :]
-            slab_ref[0, sx + a, pl.ds(sy, P), :] = cur + wx[0, a] * patch2d
-        return 0
-
-    jax.lax.fori_loop(0, R, body, 0)
-
-
-def _interp_kernel(gx_ref, gy_ref, wx_ref, wy_ref, slab_ref, out_ref,
-                   *, R, P, W):
-    dt = out_ref.dtype
-
-    def body(i, _):
-        sx = gx_ref[0, 0, i]
-        sy = gy_ref[0, 0, i]
-        wx = wx_ref[0, pl.ds(i, 1), :]  # (1, P)
-        wyc = wy_ref[0, pl.ds(i, 1), :]  # (1, P)
-        acc = jnp.zeros((1, W * 3), dt)
-        # unrolled x offsets: contract y with a broadcast-multiply + reduce
-        for a in range(P):
-            plane = slab_ref[0, sx + a, pl.ds(sy, P), :]  # (P, W*3)
-            yred = jnp.sum(wyc.reshape(P, 1) * plane, axis=0, keepdims=True)
-            acc = acc + wx[0, a] * yred
-        # z contraction and component split happen in XLA (in-kernel scalar
-        # reductions per slot measured 3x slower than streaming the z-line)
-        out_ref[0, pl.ds(i, 1), :] = acc
-        return 0
-
-    jax.lax.fori_loop(0, R, body, 0)
-
-
-def _combine_axis(slabs: Array, G: int, m: int, P: int, axis_rows: int,
-                  axis_w: int) -> Array:
-    """Fold one slab axis (row index + width-W offset) into a length-G grid
-    axis: W shifted dense adds into m residue classes, then interleave."""
-    W = m + P
-    nyz = G // m
-    s = jnp.moveaxis(slabs, (axis_rows, axis_w), (0, 1))  # (nyz, W, ...)
-    rest = s.shape[2:]
-    acc = jnp.zeros((m, nyz) + rest, s.dtype)
-    for q in range(W):
-        g = q - P // 2
-        r = g % m
-        d = (g - r) // m  # row offset (can be -1 or 0 or +1)
-        contrib = jnp.roll(s[:, q], shift=d, axis=0)  # wraps periodically
-        acc = acc.at[r].add(contrib)
-    # grid index = m * iy + r  ->  interleave (nyz, m) -> G
-    out = jnp.moveaxis(acc, (0, 1), (1, 0)).reshape((G,) + rest)
-    return out
-
-
-def _extract_axis(grid_axis: Array, G: int, m: int, P: int) -> Array:
-    """Inverse of _combine_axis: (G, ...) -> (nyz, W, ...) slab views."""
-    W = m + P
-    nyz = G // m
-    rest = grid_axis.shape[1:]
-    g2 = grid_axis.reshape((nyz, m) + rest)
-    outs = []
-    for q in range(W):
-        g = q - P // 2
-        r = g % m
-        d = (g - r) // m
-        outs.append(jnp.roll(g2[:, r], shift=-d, axis=0))
-    return jnp.stack(outs, axis=1)  # (nyz, W, ...)
-
-
 # ---------------------------------------------------------------------------
-# Dense MXU gridding: the spread of one row is a CONTRACTION over slots,
+# Dense row gridding: the spread of one row is a CONTRACTION over slots,
 #   slab(x, yz) = sum_s wx_s(x) * wyzf_s(yz),
 # i.e. a (G+XPAD, R) @ (R, W*W*3) matmul per row once the windows are
 # evaluated DENSE along each slab axis (the off-support values are
 # exponentially tiny, so dense evaluation is a strict accuracy superset).
-# ~20x more FLOPs than the P-support rank-1 updates, but they run on the
-# MXU instead of serialized (P, W*3) read-modify-writes: measured 812 ->
-# ~8x faster wave applies at 1M. Interpolation is the transposed matmul.
-# Pure XLA — no Mosaic, runs everywhere.
+# ~20x more FLOPs than P-support rank-1 updates, in exchange for matrix
+# products instead of serialized (P, W*3) read-modify-writes.
+# Interpolation is the transposed matmul.
 # ---------------------------------------------------------------------------
 
 
@@ -277,7 +127,7 @@ def se_bin_dense(geom: SEGridRows, pos: Array, dtype=jnp.float32):
         raise ValueError(
             f"window support P={geom.P} exceeds the dense-gridding x wrap "
             f"pad XPAD={XPAD}: wrapped window mass would be silently "
-            "truncated (use the sparse row kernels for P > 16)")
+            "truncated")
     perm, overflow = _bin_rows(geom, pos)
     n = pos.shape[0]
     h = geom.box / geom.G
@@ -317,7 +167,7 @@ def _row_iyz(geom: SEGridRows):
 
 
 def se_spread_dense(geom: SEGridRows, pieces_dense, forces: Array) -> Array:
-    """(G, G, G, 3) spread grid via per-row MXU contractions.
+    """(G, G, G, 3) spread grid via per-row matrix contractions.
 
     Memory shape: a scan over rows accumulates each row's slab directly
     into a y/z-padded grid with dynamic-slice adds — nothing of size
@@ -418,138 +268,13 @@ def se_interp_dense(geom: SEGridRows, pieces_dense, n: int,
     return uacc[:n] * (h * h * h)
 
 
-def se_bin_and_windows(geom: SEGridRows, pos: Array, dtype=jnp.float32):
-    """One-shot binning + window precompute, shared by spread and interp
-    (they use identical windows — one sort per wave apply, not two)."""
-    perm, overflow = _bin_rows(geom, pos)
-    gx0, gy0, wx, wy, wz = _windows(geom, pos, perm, dtype)
-    return (perm, overflow, gx0, gy0, wx, wy, wz)
-
-
-def se_spread_rows_pre(geom: SEGridRows, pieces, forces: Array,
-                       interpret: bool = False) -> Array:
-    """(G, G, G, 3) spread grid via the Pallas row kernel."""
-    G, m, P, R = geom.G, geom.m, geom.P, geom.R
-    W = m + P
-    nyz = G // m
-    n_rows = nyz * nyz
-    dtype = forces.dtype
-    n = forces.shape[0]
-
-    perm, _overflow, gx0, gy0, wx, wy, wz = pieces
-    f = jnp.where((perm < n)[..., None], forces[jnp.minimum(perm, n - 1)], 0.0)
-    # wzf: z window x force components, flattened (n_rows, R, W*3)
-    wzf = (wz[..., :, None] * f[..., None, :]).reshape(n_rows, R, W * 3)
-
-    rc = _r_chunk(R)
-    kern = functools.partial(_spread_kernel, R=rc, P=P)
-    slabs = pl.pallas_call(
-        kern,
-        grid=(n_rows, R // rc),
-        in_specs=[
-            pl.BlockSpec((1, 1, rc), lambda r, c: (r, 0, c),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1, rc), lambda r, c: (r, 0, c),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, rc, P), lambda r, c: (r, c, 0)),
-            pl.BlockSpec((1, rc, P), lambda r, c: (r, c, 0)),
-            pl.BlockSpec((1, rc, W * 3), lambda r, c: (r, c, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, G + XPAD, W, W * 3),
-                               lambda r, c: (r, 0, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((n_rows, G + XPAD, W, W * 3), dtype),
-        interpret=interpret,
-    )(gx0[:, None], gy0[:, None], wx, wy, wzf)
-
-    # fold x pad (periodic wrap)
-    core = slabs[:, XPAD // 2:XPAD // 2 + G]
-    head = slabs[:, :XPAD // 2]  # wraps to high x
-    tail = slabs[:, XPAD // 2 + G:]  # wraps to low x
-    core = core.at[:, G - XPAD // 2:].add(head)
-    core = core.at[:, :XPAD // 2].add(tail)
-    # (n_rows, G, W, W*3) -> (nyz, nyz, G, W, W, 3)
-    s = core.reshape(nyz, nyz, G, W, W, 3)
-    # fold y (rows axis 0, width axis 3) then z (axis 1, width 3)
-    s = _combine_axis(s, G, m, P, axis_rows=0, axis_w=3)  # (Gy, nyz, G, W, 3)
-    s = _combine_axis(s, G, m, P, axis_rows=1, axis_w=3)  # (Gz, Gy, Gx, 3)
-    grid = jnp.transpose(s, (2, 1, 0, 3))  # (Gx, Gy, Gz, 3)
-    return grid
-
-
-def se_spread_rows(geom: SEGridRows, pos: Array, forces: Array,
-                   interpret: bool = False):
-    """Convenience wrapper: bin + spread. Returns (grid, overflow)."""
-    pieces = se_bin_and_windows(geom, pos, forces.dtype)
-    return se_spread_rows_pre(geom, pieces, forces, interpret), pieces[1]
-
-
-def se_interp_rows_pre(geom: SEGridRows, pieces, n: int, grid: Array,
-                       interpret: bool = False) -> Array:
-    """Interpolate grid velocities to particles via the transpose kernel."""
-    G, m, P, R = geom.G, geom.m, geom.P, geom.R
-    W = m + P
-    nyz = G // m
-    n_rows = nyz * nyz
-    dtype = grid.dtype
-
-    perm, _overflow, gx0, gy0, wx, wy, wz = pieces
-
-    # build slab views of the grid: inverse of the combine
-    g = jnp.transpose(grid, (2, 1, 0, 3))  # (Gz, Gy, Gx, 3)
-    s = _extract_axis(g, G, m, P)  # (nyz_z, W_z, Gy, Gx, 3)
-    s = jnp.moveaxis(s, (0, 1), (1, 3))  # (Gy, nyz_z, Gx, W_z, 3)
-    s = _extract_axis(s, G, m, P)  # (nyz_y, W_y, nyz_z, Gx, W_z, 3)
-    # -> (n_rows, Gx(+pad), W_y, W_z*3)
-    s = jnp.transpose(s, (0, 2, 3, 1, 4, 5)).reshape(nyz, nyz, G, W, W * 3)
-    s = s.reshape(n_rows, G, W, W * 3)
-    pad_head = s[:, G - XPAD // 2:]
-    pad_tail = s[:, :XPAD // 2]
-    slabs = jnp.concatenate([pad_head, s, pad_tail], axis=1)
-
-    rc = _r_chunk(R)
-    kern = functools.partial(_interp_kernel, R=rc, P=P, W=W)
-    zlines = pl.pallas_call(
-        kern,
-        grid=(n_rows, R // rc),
-        in_specs=[
-            pl.BlockSpec((1, 1, rc), lambda r, c: (r, 0, c),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1, rc), lambda r, c: (r, 0, c),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, rc, P), lambda r, c: (r, c, 0)),
-            pl.BlockSpec((1, rc, P), lambda r, c: (r, c, 0)),
-            pl.BlockSpec((1, G + XPAD, W, W * 3), lambda r, c: (r, 0, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, rc, W * 3), lambda r, c: (r, c, 0)),
-        out_shape=jax.ShapeDtypeStruct((n_rows, R, W * 3), dtype),
-        interpret=interpret,
-    )(gx0[:, None], gy0[:, None], wx, wy, slabs)
-    # z contraction + component split in XLA
-    out = jnp.sum(zlines.reshape(n_rows, R, W, 3) *
-                  wz[..., :, None].astype(dtype), axis=2)
-
-    # unsort: slot -> particle
-    perm_f = perm.reshape(-1)
-    u = jnp.zeros((n + 1, 3), dtype).at[jnp.minimum(perm_f, n)].set(
-        out.reshape(-1, 3), mode="drop")
-    h = geom.box / G
-    return u[:n] * (h * h * h)  # interpolation quadrature cell volume
-
-
-def se_interp_rows(geom: SEGridRows, pos: Array, grid: Array,
-                   interpret: bool = False) -> Array:
-    """Convenience wrapper: bin + interpolate."""
-    pieces = se_bin_and_windows(geom, pos, grid.dtype)
-    return se_interp_rows_pre(geom, pieces, pos.shape[0], grid, interpret)
-
-
 # ---------------------------------------------------------------------------
 # 3D-TILED dense gridding: the row decomposition above spans the FULL x axis
 # per (y, z) column, so a chain clustered along x blows the column capacity R
-# to the whole chain length (measured se_R = 1688 at 1M clustered chromatin
-# -> 893 ms wave applies). Tiles bound occupancy LOCALLY on all three axes:
+# to the whole chain length (se_R = 1688 at 1M clustered chromatin).
+# Tiles bound occupancy LOCALLY on all three axes:
 # bin into (G/m)^3 cubes of m grid cells, spread each tile's slots onto its
-# private (W, W, W) slab (W = m + P) with one MXU contraction
+# private (W, W, W) slab (W = m + P) with one matrix contraction
 #     slab[xy, zc] = sum_s (wx wy)_s[xy] * (wz f)_s[zc],
 # then fold the slabs into the (G, G, G, 3) grid with the same shifted
 # dense adds per axis (periodic wrap included) — no scatters anywhere.
@@ -601,8 +326,8 @@ def se_bin_tiles(geom: SEGridTiles, pos: Array, dtype=jnp.float32):
     """Bin into (n_tiles, R) slots (one sort + one scatter). Returns
     (perm, overflow, u, valid, slot_of): `u` per-slot grid-unit positions,
     `slot_of` (N,) the inverse map particle -> slot (n_tiles*R = dropped)
-    so interpolation unsorts with one row GATHER instead of a slot scatter
-    (~9 ns/slot on v5e — 38 ms at 4M padded slots)."""
+    so interpolation unsorts with one row GATHER instead of a slot
+    scatter."""
     G, m, R = geom.G, geom.m, geom.R
     nt1 = G // m
     n_tiles = nt1 ** 3
@@ -652,10 +377,8 @@ def _tile_windows(geom: SEGridTiles, u: Array, i0: Array, dtype):
 def _placement_matrix(G: int, m: int, P: int, dtype=jnp.float32) -> Array:
     """(G, nt1*W) static 0/1 placement: column nt*W + w contributes to grid
     row (nt*m + w - P//2) mod G. Folding a slab axis into the grid axis as
-    ONE placement GEMM replaces the roll-based combine's W shifted
-    full-slab adds — the combine was measured as ~85% of the spread cost
-    at 1M beads (the (W, W, 3) minor axes tile-pad 42x, and each of the W
-    rolls streams the whole padded slab)."""
+    ONE placement GEMM replaces a roll-based combine of W shifted
+    full-slab adds, each of which streams the whole slab."""
     W = m + P
     nt1 = G // m
     S = np.zeros((G, nt1 * W), np.float32)
@@ -667,17 +390,14 @@ def _placement_matrix(G: int, m: int, P: int, dtype=jnp.float32) -> Array:
 
 def se_spread_tiles(geom: SEGridTiles, pieces, forces: Array,
                     tile_batch: int = 128) -> Array:
-    """(G, G, G, 3) spread grid via per-tile MXU contractions.
+    """(G, G, G, 3) spread grid via per-tile matrix contractions.
 
-    Scans over x-planes of tiles (nt1 steps). Per tile the window outer
-    product contracts slots on the MXU into a FLAT (Wx, Wy*Wz*3) slab —
-    the minor axis pads ~9% instead of the 42x a trailing (..., W, 3)
-    layout pays. The plane's y/z slab axes fold into grid axes by two
-    placement GEMMs (static 0/1 matrices, exact in the f32 HIGHEST
-    decomposition); only the W x-rows scatter-add into the carried grid.
-    The one-shot all-tiles form OOMed at 1M beads (the full
-    (n_tiles, W, W, W, 3) tensor is ~11 GB padded), and the roll-based
-    per-plane combine cost ~400 of 465 ms (ablation in PERF.md)."""
+    Scans over x-planes of tiles (nt1 steps), so the full
+    (n_tiles, W, W, W, 3) slab tensor is never materialized. Per tile the
+    window outer product contracts slots into a FLAT (Wx, Wy*Wz*3) slab.
+    The plane's y/z slab axes fold into grid axes by two placement GEMMs
+    (static 0/1 matrices, exact at HIGHEST precision); only the W x-rows
+    add into the carried grid."""
     G, m, P, R = geom.G, geom.m, geom.P, geom.R
     W = m + P
     nt1 = G // m
@@ -700,7 +420,7 @@ def se_spread_tiles(geom: SEGridTiles, pieces, forces: Array,
 
         def body(args):
             # ONE tile (lax.map with batch_size vmaps this -> a batched
-            # MXU contraction over the R slots)
+            # contraction over the R slots)
             ur, vr, fr, iyr, izr = args
             wx = jnp.where(vr[:, None],
                            _tile_windows(geom, ur[:, 0], px, dtype), 0.0)
@@ -721,8 +441,7 @@ def se_spread_tiles(geom: SEGridTiles, pieces, forces: Array,
         s = jnp.transpose(s, (2, 1, 0, 3))  # (Wx, Gy, Gz, 3)
         # contiguous slice-add into the x-PADDED accumulator: plane px's
         # rows are [px*m, px*m + W) in padded coords (offset P//2), so no
-        # wraparound and no dynamic-index scatter (a W-row .at[rows].add
-        # gather/scatter measured ~180 ms per apply at G=400)
+        # wraparound and no dynamic-index scatter
         row0 = px * m
         z = jnp.zeros((), row0.dtype)
         cur = jax.lax.dynamic_slice(acc, (row0, z, z, z), (W, G, G, 3))
@@ -765,7 +484,7 @@ def se_interp_tiles(geom: SEGridTiles, pieces, grid: Array,
 
     # x-padded grid: plane px's rows are the contiguous slice
     # [px*m, px*m + W) — a dynamic_slice instead of a W-row dynamic-index
-    # gather (the gather measured ~180 ms per apply at G=400)
+    # gather
     ph = P // 2
     gpad = jnp.concatenate([grid[G - ph:], grid, grid[:P - ph]], axis=0)
 

@@ -1,20 +1,17 @@
-"""Blocked segmented reduction for sorted ids — the TPU scatter replacement.
+"""Blocked segmented reduction for sorted ids (the LCP force assembly).
 
-XLA's scatter-add and segment_sum cost ~90 ns/row on v5e regardless of the
-`indices_are_sorted` hint (measured: a (800k, 3) f32 scatter runs 70 ms —
-scatter lowers to a serial per-window loop). For SORTED ids the reduction
-can ride the MXU instead: partition bodies into blocks of B, slice each
-block's contiguous pair window (<= W pairs, found by binary search at
-rebuild), and reduce with a (B, W) one-hot matmul. bf16 one-hot entries are
-exact; values go through a hi/mid/lo bf16 split capturing the full 24-bit
-f32 mantissa (~1-2 ulp f32 per summand). Measured 11.3 ms for a (800k, 3)
-reduction with the 2-term split — 6.2x over scatter; the third term rides
-the same one-hot operand.
+For SORTED ids the reduction is a sequence of small dense products:
+partition bodies into blocks of B, slice each block's contiguous pair window
+(<= W pairs, found at rebuild), and reduce with a (B, W) one-hot matmul.
+bf16 one-hot entries are exact; f32 values go through a hi/mid/lo bf16 split
+that captures the full 24-bit mantissa (~1-2 ulp f32 per summand), so the
+products can run at bf16 rate with f32 accumulation. Whether this beats a
+plain sorted `segment_sum` on a given device is a measurement.
 
 This is the force-assembly primitive of the LCP collision path (the
 reference's `sum_collision_force`, `scrap/lcp_spheres/StkNgpLCP.cpp:578`,
-runs atomic scatter-adds under Kokkos; sorted one-sided assembly is the
-TPU-native equivalent).
+runs atomic scatter-adds under Kokkos; sorted one-sided assembly is
+deterministic).
 """
 
 from __future__ import annotations
@@ -47,9 +44,8 @@ def segment_windows(ids: Array, n_segments: int, block_bodies: int,
 
     `body_starts` ((n_segments+1,) exclusive-cumulative per-body counts,
     e.g. body_pair_starts on the neighbor matrix the list was compacted
-    from) replaces the searchsorted — which XLA lowers to a serial
-    ~20-probe gather chain costing 28 ms at 1M slots on v5e — with one
-    (nb+1,)-row gather."""
+    from) replaces the searchsorted — a serial ~20-probe gather chain —
+    with one (nb+1,)-row gather."""
     B, W = block_bodies, window
     nb = -(-n_segments // B)
     # pads carry id == n_segments: clip the edges so the trailing pad run
@@ -72,8 +68,7 @@ class StridedWindows(NamedTuple):
     """Static-offset block structure: pairs of segment block b occupy slots
     [b*W, b*W + count_b) (constraints/collision.active_pair_subset_strided).
     Unlike SegmentWindows there is nothing to search at rebuild — block b's
-    window IS [b*W, (b+1)*W) — which is what lets the Pallas one-hot kernel
-    (ops/pallas/seg_onehot.py) run without dynamic HBM slicing."""
+    window IS [b*W, (b+1)*W)."""
 
     block_bodies: int  # B
     window: int  # W
@@ -88,27 +83,9 @@ def segment_sum_strided(
     n_segments: int,
     windows: StridedWindows,
 ) -> Array:
-    """Strided-layout segmented reduction -> (n_segments, D).
-
-    TPU f32 path: the VMEM one-hot Pallas kernel (~80x less HBM traffic than
-    the windowed XLA path's materialized one-hots). Elsewhere: the windowed
-    XLA reduction with the static starts b*W.
-    """
+    """Strided-layout segmented reduction -> (n_segments, D): the windowed
+    blocked reduction with the static starts b*W."""
     B, W, nb = windows.block_bodies, windows.window, windows.nb
-    D = values.shape[1]
-    use_pallas = (jax.default_backend() == "tpu"
-                  and values.dtype == jnp.float32 and D == 3
-                  and W % 8 == 0 and B % 128 == 0)
-    if use_pallas:
-        from mundy_tpu.ops.pallas.seg_onehot import (seg_onehot_vmem_ok,
-                                                     strided_onehot_segment_sum)
-        use_pallas = seg_onehot_vmem_ok(W, B)
-    if use_pallas:
-        blk = jnp.repeat(jnp.arange(nb, dtype=jnp.int32), W)
-        loc = (ids - blk * B).reshape(nb, W)
-        v = values.reshape(nb, W, D).transpose(0, 2, 1)
-        out = strided_onehot_segment_sum(v, loc, B)
-        return out.transpose(0, 2, 1).reshape(nb * B, D)[:n_segments]
     starts = jnp.arange(nb, dtype=jnp.int32) * W
     win = SegmentWindows(starts=starts, block_bodies=B, window=W,
                          overflow=windows.overflow)
@@ -122,27 +99,14 @@ def strided_t(
     n_segments: int,
     windows: StridedWindows,
 ) -> Array:
-    """Fused i-side Delassus half-apply on the strided layout -> (nb*W,).
+    """i-side Delassus half-apply on the strided layout -> (nb*W,).
 
-    t_p = -n_p . F_{i(p)}, F = strided assembly of -gamma n. On TPU f32 the
-    VMEM one-hot kernel computes both in one pass (no global gathers); the
-    fallback assembles then row-gathers.
+    t_p = -n_p . F_{i(p)}, F = strided assembly of -gamma n, then one row
+    gather of F per slot.
     """
     B, W, nb = windows.block_bodies, windows.window, windows.nb
-    use_pallas = (jax.default_backend() == "tpu"
-                  and gamma.dtype == jnp.float32
-                  and W % 8 == 0 and B % 128 == 0)
-    if use_pallas:
-        from mundy_tpu.ops.pallas.seg_onehot import (seg_onehot_vmem_ok,
-                                                     strided_onehot_t)
-        use_pallas = seg_onehot_vmem_ok(W, B)
     blk = jnp.repeat(jnp.arange(nb, dtype=jnp.int32), W)
     loc = ids - blk * B
-    if use_pallas:
-        t = strided_onehot_t(gamma.reshape(nb, W),
-                             normals.reshape(nb, W, 3).transpose(0, 2, 1),
-                             loc.reshape(nb, W), B)
-        return t.reshape(nb * W)
     f = segment_sum_strided(-gamma[:, None] * normals, ids, n_segments,
                             windows)
     valid = (loc >= 0) & (loc < B)
@@ -178,19 +142,18 @@ def segment_sum_sorted_blocked(
         iw = jax.lax.dynamic_slice_in_dim(ipad, p0, W, 0)
         loc = iw - b * B
         onehot = loc[None, :] == lanes[:, None]
-        if not f32_path:  # f64 (CPU tests): exact dot, no MXU concern
+        if not f32_path:  # f64: exact dot at HIGHEST precision
             return jnp.dot(onehot.astype(values.dtype), vw,
                            precision=jax.lax.Precision.HIGHEST)
         oh = onehot.astype(jnp.bfloat16)
         # barriers keep XLA from collapsing the f32->bf16->f32 round trips
         # (hi included — otherwise CPU folds hi back to the f32 value and
-        # tests never see the real MXU-path precision) or refolding the
+        # tests never see the bf16-product precision) or refolding the
         # terms into one bf16 dot. THREE bf16 terms recover the full 24-bit
-        # f32 mantissa (8 bits each): the 2-term split's ~2^-17 relative
-        # error was the BBPGD residual floor at 1M bodies (~2e-5 > the 1e-5
-        # overlap tolerance — solves burned the patience budget every step
-        # instead of exiting at tol). The one-hot operand is shared, so the
-        # third dot adds ~1/3 of the value-stream cost, not 50%.
+        # f32 mantissa (8 bits each): a 2-term split's ~2^-17 relative
+        # error is a BBPGD residual floor at 1M bodies (~2e-5 > the 1e-5
+        # overlap tolerance). The one-hot operand is shared, so the third
+        # dot adds ~1/3 of the value-stream cost, not 50%.
         hi = jax.lax.optimization_barrier(vw.astype(jnp.bfloat16))
         rem = vw - hi.astype(jnp.float32)
         mid = jax.lax.optimization_barrier(rem.astype(jnp.bfloat16))

@@ -1,6 +1,6 @@
 """Multi-chip execution over a jax.sharding.Mesh.
 
-TPU-native replacement for the reference's MPI layer (SURVEY.md §2.7): rank
+Replacement for the reference's MPI layer (SURVEY.md §2.7): rank
 decomposition -> sharded particle arrays; `stk::all_reduce_*` -> psum/pmax;
 ghosting/aura -> halo exchange (all-gather of boundary slabs or ppermute
 rings); RCB load balance -> Hilbert-key resharding.

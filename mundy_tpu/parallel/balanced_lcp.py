@@ -286,7 +286,7 @@ def make_balanced_lcp_step(
 
             # skin trigger computed in the BODY, carried as a flag the
             # cond reads (a while cond can't fuse with the body and runs
-            # its pmax as a separate program; ablate_burst.py)
+            # its pmax as a separate program)
             def inner_step_flag(cf):
                 c, _ = cf
                 c = inner_step(c)

@@ -3,7 +3,7 @@
 The stk::balance / RCB role of the reference (`mundy::loadbalance` with
 `RcbSettings`, `scrap/hp1_mock_reworks/HP1_mock_rework_agents_text_mesh_
 neigh_linker.cpp:820,1358` — re-run DURING the run, not just at setup)
-re-designed TPU-native. SPMD shapes are static, so "rebalancing" cannot
+re-designed for SPMD. SPMD shapes are static, so "rebalancing" cannot
 resize shard arrays; instead each shard owns a FIXED-capacity compact
 particle buffer and the OWNERSHIP MAP — d+1 z-boundaries — is *data*,
 recomputed from the measured z-histogram at every skin rebuild:
@@ -281,7 +281,7 @@ def make_balanced_settling_step(
 
             # skin trigger computed in the BODY, carried as a flag the
             # cond reads (a while cond can't fuse with the body and runs
-            # its pmax as a separate program; ablate_burst.py)
+            # its pmax as a separate program)
             def inner_step_flag(cf):
                 c, _ = cf
                 c = inner_step(c)

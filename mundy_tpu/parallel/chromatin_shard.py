@@ -61,7 +61,7 @@ def make_sharded_chromatin_step(mesh: Mesh, axis: str, sim):
     :1409, evaluated under the MPI world):
       - dense RPY drift: each shard evaluates its OWN target-row block
         against all sources (one (N, 3) force all-gather; the N x N/d
-        block is MXU work);
+        block is one matrix product);
       - ambient flow at the surface quadrature: per-shard partial sums
         over OWN beads, ONE psum;
       - surface densities q = -M^{-1} u|surf: the dense (3Q, 3Q) inverse
@@ -150,7 +150,7 @@ def make_sharded_chromatin_step(mesh: Mesh, axis: str, sim):
             rpy_flow_at(sim.periphery.points, pos_own, f_own, a,
                         c.viscosity), axis)
         # sharded GEMV: this shard's row slab of q = -M^{-1} u|surf
-        # (HIGHEST precision — the bf16 MXU default corrupts the no-slip
+        # (HIGHEST precision — a bf16/TF32 product corrupts the no-slip
         # balance, mobility/periphery.surface_densities)
         q_blk = -jnp.dot(minv_blk, u_surf.reshape(-1),
                          precision=jax.lax.Precision.HIGHEST)
@@ -374,7 +374,7 @@ def make_sharded_chromatin_step(mesh: Mesh, axis: str, sim):
 
             # skin trigger computed in the BODY, carried as a flag the
             # cond reads (a while cond can't fuse with the body and runs
-            # its pmax as a separate program; ablate_burst.py)
+            # its pmax as a separate program)
             def inner_step_flag(cf):
                 cr, _ = cf
                 cr = inner_step(cr)

@@ -172,7 +172,7 @@ def make_sharded_filaments_step(mesh: Mesh, axis: str, sim):
 
             # skin trigger computed in the BODY, carried as a flag the
             # cond reads (a while cond can't fuse with the body and runs
-            # its pmax as a separate program; ablate_burst.py)
+            # its pmax as a separate program)
             def inner_step_flag(cf):
                 cr, _ = cf
                 cr = inner_step(cr)

@@ -10,7 +10,7 @@ FrictionalHertzianContact.cpp:440-520` dispatched through
 `mundy/mesh/src/mundy_mesh/GenNeighborLinkers.hpp:700-741`), with per-contact
 history riding the persistent linker entities across rebalances.
 
-TPU form (the `balanced_lcp` slab pattern, extended with history state):
+JAX form (the `balanced_lcp` slab pattern, extended with history state):
 
 - ownership map = d+1 z-boundaries over the tall settling box [0, 2L],
   recomputed from the measured z-histogram at every rebuild
@@ -221,7 +221,9 @@ def make_granular_slab_step(
         old_v = val_tab[gi]  # (n_cap, K, 3)
         want = jnp.where(new_ngid < n_total, new_ngid + 1, -1)  # (n_cap, K)
         hit = old_k[:, None, :] == want[:, :, None]  # (n_cap, Knew, Kold)
-        return jnp.einsum("npq,nqc->npc", hit.astype(dtype), old_v)
+        # HIGHEST: the one-hot remap must carry history exactly (no TF32)
+        return jnp.einsum("npq,nqc->npc", hit.astype(dtype), old_v,
+                          precision=jax.lax.Precision.HIGHEST)
 
     def local_block(st, n_steps):
         shard_id = jax.lax.axis_index(axis)
@@ -341,7 +343,7 @@ def make_granular_slab_step(
 
             # skin trigger computed in the BODY, carried as a flag the
             # cond reads (a while cond can't fuse with the body and runs
-            # its pmax as a separate program; ablate_burst.py)
+            # its pmax as a separate program)
             def inner_step_flag(cf):
                 cr, _ = cf
                 cr = inner_step(cr)

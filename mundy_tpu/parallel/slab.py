@@ -1,6 +1,6 @@
 """Slab domain decomposition with ppermute halo exchange + migration.
 
-The TPU-native form of the reference's MPI spatial decomposition
+The JAX form of the reference's MPI spatial decomposition
 (SURVEY.md §2.7): entities owned by ranks -> capacity-padded per-shard
 particle slots; STK aura/ghosting (`GenNeighborLinkers.hpp:700-741`) ->
 fixed-capacity boundary buffers exchanged with mesh neighbors via

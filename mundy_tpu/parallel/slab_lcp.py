@@ -345,7 +345,7 @@ def make_slab_lcp_spheres_step(
 
             # skin trigger computed in the BODY, carried as a flag the
             # cond reads (a while cond can't fuse with the body and runs
-            # its pmax as a separate program; ablate_burst.py)
+            # its pmax as a separate program)
             def inner_step_flag(cf):
                 c, _ = cf
                 c = inner_step(c)

@@ -185,7 +185,8 @@ def make_slab_rows_spheres_step(
                     key, step, gid, jnp.asarray(diffusion, dtype), dt,
                     dtype=dtype)
                 vel = vel + jnp.where(valid[..., None], bz, 0.0)
-            new_pos = metric.wrap(pos + jnp.asarray(dt, dtype) * vel)
+            # no wrap between rebuilds (neighbor/rows.py): rebuilds wrap
+            new_pos = pos + jnp.asarray(dt, dtype) * vel
             new_pos = jnp.where(valid[..., None], new_pos, pos)
             return (new_pos, valid, gid, ref_pos, key, step + 1, done + 1)
 
@@ -201,7 +202,7 @@ def make_slab_rows_spheres_step(
             flat_local = jnp.zeros((n_total, 3), dtype)
             idx = jnp.where(valid.reshape(-1), gid.reshape(-1), n_total)
             flat_local = flat_local.at[idx].set(pos.reshape(-1, 3), mode="drop")
-            flat = jax.lax.psum(flat_local, axis)
+            flat = metric.wrap(jax.lax.psum(flat_local, axis))
             rows = build_rows(flat, jnp.arange(n_total, dtype=jnp.int32), grid)
             me = jax.lax.axis_index(axis)
             z0 = me * nzl
@@ -217,6 +218,7 @@ def make_slab_rows_spheres_step(
             Produces exactly the rows the global resort would (same (y,z)
             cell assignment, same within-row x sort)."""
             pos, valid, gid, _ref, key, step, done = carry
+            pos = jnp.where(valid[..., None], metric.wrap(pos), pos)
             new_pos, new_val, new_gid, _, ovf = slab_local_resort(
                 pos, valid, gid, grid, nzl, axis, d, ovf=ovf)
             return ((new_pos, new_val, new_gid, new_pos, key, step, done),
@@ -232,8 +234,7 @@ def make_slab_rows_spheres_step(
             # skin trigger computed in the BODY, carried as a flag the cond
             # reads: a while cond can't fuse with the body, so moved() in
             # the cond re-streams positions AND runs its pmax collective as
-            # a separate program per iteration (ablate_burst.py: +37
-            # ms/step at 1M single-chip)
+            # a separate program per iteration
             def inner_step_flag(cf):
                 c, _ = cf
                 c = inner_step(c)
@@ -253,6 +254,9 @@ def make_slab_rows_spheres_step(
         (carry, overflow) = jax.lax.while_loop(
             lambda co: co[0][6] < target, outer_body, (carry, overflow))
         pos, valid, gid, ref_pos, _key, step, _done = carry
+        # every block starts with a rebuild, so the returned positions can
+        # be wrapped for the caller
+        pos = jnp.where(valid[..., None], metric.wrap(pos), pos)
         return pos, valid, gid, ref_pos, overflow, step
 
     step_block = jax.jit(

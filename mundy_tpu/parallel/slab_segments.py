@@ -241,8 +241,9 @@ def make_slab_rods_step(
                 omega = omega + brownian_velocity_keyed(
                     krot, step, gid, jnp.asarray(rot_diffusion, dtype), dt,
                     dtype=dtype)
+            # no wrap between rebuilds (neighbor/rows.py): rebuilds wrap
             new_pos, new_quat = euler_step_rigid(
-                pos, quat, vel, omega, jnp.asarray(dt, dtype), metric=metric)
+                pos, quat, vel, omega, jnp.asarray(dt, dtype))
             new_pos = jnp.where(valid[..., None], new_pos, pos)
             return (new_pos, new_quat, valid, gid, ref_pos, key,
                     step + 1, done + 1)
@@ -255,6 +256,7 @@ def make_slab_rods_step(
 
         def rebuild(carry, ovf):
             pos, quat, valid, gid, _ref, key, step, done = carry
+            pos = jnp.where(valid[..., None], metric.wrap(pos), pos)
             ident = jnp.zeros((4,), dtype).at[0].set(1.0)
             if rebuild_mode == "local":
                 new_pos, new_val, new_gid, (new_quat,), ovf = \
@@ -289,7 +291,7 @@ def make_slab_rods_step(
 
             # skin trigger computed in the BODY, carried as a flag the
             # cond reads (a while cond can't fuse with the body and runs
-            # its pmax as a separate program; ablate_burst.py)
+            # its pmax as a separate program)
             def inner_step_flag(cf):
                 c, _ = cf
                 c = inner_step(c)
@@ -309,6 +311,8 @@ def make_slab_rods_step(
         (carry, overflow) = jax.lax.while_loop(
             lambda co: co[0][7] < target, outer_body, (carry, overflow))
         pos, quat, valid, gid, ref_pos, _key, step, _done = carry
+        # every block starts with a rebuild: wrap the returned positions
+        pos = jnp.where(valid[..., None], metric.wrap(pos), pos)
         return pos, quat, valid, gid, ref_pos, overflow, step
 
     step_block = jax.jit(

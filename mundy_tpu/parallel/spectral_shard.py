@@ -6,7 +6,7 @@ mobility/spectral.se_rpy_apply_cells):
 
 - particles are block-sharded over the mesh axis (flat (N/d, 3) arrays);
 - WAVE space: each shard bins + spreads its OWN particles onto a full
-  (G, G, G, 3) grid with the dense-MXU gridding (the dominant cost — now
+  (G, G, G, 3) grid with the dense gridding (the dominant cost — now
   divided by d), the partial grids are summed with ONE `psum`, every shard
   runs the (replicated) 3D FFT x Hasimoto screen x iFFT, and interpolates
   back only at its own particles;
@@ -16,8 +16,7 @@ mobility/spectral.se_rpy_apply_cells):
   blocks, the dominant cost, divided by d); slab results meet in one psum.
 
 Scaling notes: the replicated FFT caps wave-space scaling at the FFT cost
-(27 ms of 812 at 1M on v5e — far from dominant) and the all-gather costs
-O(N) ICI bytes per apply; a pencil-decomposed FFT and halo-restricted
+and the all-gather costs O(N) interconnect bytes per apply; a pencil-decomposed FFT and halo-restricted
 ghosting are the known upgrades once these dominate.
 """
 
@@ -61,7 +60,7 @@ def make_se_local_apply(
         gather_from_flat,
         pair_apply_cells3d,
     )
-    from mundy_tpu.ops.pallas.se_grid import (
+    from mundy_tpu.ops.se_grid import (
         SEGridTiles,
         se_bin_dense,
         se_bin_tiles,

@@ -1,9 +1,9 @@
-"""State runtime: the TPU-native replacement for MundyMesh.
+"""State runtime: the Replacement for MundyMesh.
 
 The reference's L3 mesh layer (`mundy/mesh/`, ~28 kLoC — SURVEY.md §2.5) is
 an STK distributed unstructured mesh: MetaData/BulkData, bucketed entities,
 dynamic field registration, N-ary "link" connectivity, neighbor ghosting, a
-fused-expression engine, and field BLAS. On TPU, all of it collapses to a
+fused-expression engine, and field BLAS. Here all of it collapses to a
 sharded structure-of-arrays pytree plus index arrays:
 
 | reference                          | here                              |

@@ -2,7 +2,7 @@
 
 Replaces `NgpFieldBLAS.hpp:40-523` (+ `impl/NgpFieldBLASImpl.hpp`): fill,
 copy, swap, scale, axpy/axpby, product, dot/nrm2/asum/amax/amin with
-selector-mask support. On TPU these are one-liners that XLA fuses into
+selector-mask support. Here these are one-liners that XLA fuses into
 adjacent kernels — they exist for API parity and for masked-reduction
 correctness (padded/unselected entities must not pollute reductions).
 

@@ -120,7 +120,7 @@ def test_rows_contact_engine_matches_nmat():
 
 
 def test_rows_broadphase_build_matches_cell_list():
-    """The f32 rows-layout BUILD of the (N, K) matrix (Pallas/XLA row
+    """The f32 rows-layout BUILD of the (N, K) matrix (row
     extraction + adjacency post-filter) must produce the same neighbor
     pair set as the cell-list builder at the same cutoff."""
     from mundy_tpu.neighbor import build_cell_list, neighbor_matrix

@@ -84,8 +84,8 @@ def test_overlaps_resolved_ewald_hydro():
 
 
 def test_overlaps_resolved_spectral_hydro():
-    """FFT spectral-Ewald RPY mobility (Pallas gridding; interpret mode is
-    automatic on the CPU backend) inside the collision LCP."""
+    """FFT spectral-Ewald RPY mobility (dense gridding) inside the
+    collision LCP."""
     sim = LCPSpheresSim(cfg(hydro="rpy_spectral", num_steps=15, box_size=14.0,
                             dt=2e-3))
     state = sim.init()

@@ -1,5 +1,5 @@
 """f32-vs-f64 drift metric at CI scale (BASELINE.md protocol step: measure
-per-step drift of the TPU-dtype trajectory against the f64 reference).
+per-step drift of the float32 trajectory against the f64 reference).
 
 The committed at-scale numbers live in PERF.md; this tier keeps the harness
 honest and catches catastrophic precision regressions (the bf16-matmul class

@@ -1,5 +1,6 @@
 """Host regrow loop (driver/regrow.py): deliberately undersized capacities
-must be grown automatically until a run completes — the TPU replacement for
+must be grown automatically until a run completes — the static-shape
+replacement for
 the reference's dynamic entity/link creation (LinkData.hpp:159-183,446)."""
 
 import jax.numpy as jnp

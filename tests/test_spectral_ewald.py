@@ -89,39 +89,36 @@ def test_spd_and_symmetry(system):
     assert abs(a - b) / max(abs(a), 1e-12) < 1e-4
 
 
-def test_pallas_gridding_matches_scatter(rng):
-    """Row-slab Pallas spread/interp (interpret mode on CPU) vs the
-    scatter/gather reference gridding."""
-    from mundy_tpu.mobility.spectral import se_spread, se_interpolate
-    from mundy_tpu.ops.pallas.se_grid import (
-        make_se_grid_rows, se_spread_rows, se_interp_rows)
+@pytest.mark.parametrize("layout", ["rows", "tiles"])
+@pytest.mark.parametrize("window", ["gaussian", "es"])
+def test_dense_wave_apply_matches_scatter(rng, layout, window):
+    """End-to-end dense wave apply (row columns or 3D tiles) against
+    se_wave_apply's scatter/gather reference gridding, both windows."""
     from mundy_tpu.mobility import build_spectral_ewald
+    from mundy_tpu.mobility.spectral import (make_se_geometry,
+                                             make_se_geometry_tiles,
+                                             se_wave_apply_dense)
 
-    n = 250
+    n = 200
     pos = jnp.asarray(rng.uniform(0, BOX, (n, 3)))
     F = jnp.asarray(rng.normal(size=(n, 3)))
-    op = build_spectral_ewald(BOX, A, VISC, tol=1e-4, dtype=jnp.float64)
-    from mundy_tpu.mobility.spectral import make_se_geometry
-    geom = make_se_geometry(op, n)
-    g_ref = se_spread(op, pos, F)
-    g_new, ovf = se_spread_rows(geom, pos, F, interpret=True)
+    op = build_spectral_ewald(BOX, A, VISC, tol=1e-4, dtype=jnp.float64,
+                              window=window)
+    make = make_se_geometry if layout == "rows" else make_se_geometry_tiles
+    u, ovf = se_wave_apply_dense(op, make(op, n), pos, F)
     assert not bool(ovf)
-    # rows path evaluates the z window on the full slab (slightly more
-    # accurate than the P-point reference); differences sit at the window
-    # truncation level
-    assert float(jnp.abs(g_new - g_ref).max()) < 2e-4 * float(jnp.abs(g_ref).max())
-    u_ref = se_interpolate(op, pos, g_ref)
-    u_new = se_interp_rows(geom, pos, g_ref, interpret=True)
-    assert float(jnp.abs(u_new - u_ref).max()) < 2e-4 * float(jnp.abs(u_ref).max())
+    u_ref = se_wave_apply(op, pos, F)
+    rel = float(jnp.abs(u - u_ref).max() / jnp.abs(u_ref).max())
+    assert rel < 3e-4, rel
 
 
 def test_dense_gridding_matches_scatter(rng):
-    """Dense MXU-contraction spread/interp vs the scatter/gather reference
+    """Dense-contraction spread/interp vs the scatter/gather reference
     gridding (dense evaluates the full slab axes — a strict accuracy
     superset of the P-point windows, so differences sit at the window
     truncation level)."""
     from mundy_tpu.mobility.spectral import se_spread, se_interpolate
-    from mundy_tpu.ops.pallas.se_grid import (
+    from mundy_tpu.ops.se_grid import (
         make_se_grid_rows, se_bin_dense, se_spread_dense, se_interp_dense)
     from mundy_tpu.mobility import build_spectral_ewald
 
@@ -168,14 +165,14 @@ def test_es_window_shrinks_grid(system):
 
 
 def test_tile_gridding_matches_scatter(rng):
-    """3D-tiled MXU spread/interp vs the scatter/gather reference gridding
+    """3D-tiled spread/interp vs the scatter/gather reference gridding
     (tiles bound occupancy locally on all three axes — the clustered-safe
     layout; accuracy class identical to the dense rows path)."""
     from mundy_tpu.mobility.spectral import (se_spread, se_interpolate,
                                              make_se_geometry_tiles,
                                              se_wave_apply,
                                              se_wave_apply_dense)
-    from mundy_tpu.ops.pallas.se_grid import (se_bin_tiles, se_spread_tiles,
+    from mundy_tpu.ops.se_grid import (se_bin_tiles, se_spread_tiles,
                                               se_interp_tiles)
     from mundy_tpu.mobility import build_spectral_ewald
 

@@ -10,7 +10,7 @@ from jax.sharding import Mesh
 from mundy_tpu.mobility import build_spectral_ewald
 from mundy_tpu.mobility.spectral import make_se_geometry, se_rpy_apply_cells
 from mundy_tpu.neighbor.cells3d import build_cells3d, make_cell_grid3d
-from mundy_tpu.ops.pallas.se_grid import se_bin_dense
+from mundy_tpu.ops.se_grid import se_bin_dense
 from mundy_tpu.parallel.spectral_shard import make_sharded_se_rpy_apply
 
 pytestmark = pytest.mark.slow
